@@ -1,23 +1,40 @@
-"""Llama-family decoder-only transformer: configuration and parameters.
+"""Llama-family decoder-only transformer: configuration, parameters and the
+training forward and loss.
 
 Counterpart of ray_tpu/models/transformer.py. Parameters are a plain
 dictionary of tensors with the JAX package's keys and its layer-stacked
 `[L, ...]` layout, so a JAX parameter tree converts leaf by leaf
 (models/convert.py) and the serving code indexes layer i as `[i]`.
 
-`forward` and `loss_fn` (the training path, with the flash-attention
-kernels) come with the training slice; serving needs only what is here.
+`forward` and `loss_fn` are the training path: the reference's
+`lax.scan` over layers becomes a Python loop over per-layer views of the
+stacked leaves (so gradients land on the stacked tensors), its
+`jax.checkpoint` policies become `torch.utils.checkpoint` with the same
+three policies, and every RMSNorm and attention runs the hand-written
+CUDA kernels on a CUDA tensor. MoE layers and meshes (ring/Ulysses
+attention, pipeline parallelism) wait for the parallelism slice.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.ops import apply_rope, flash_attention, rmsnorm
+from ray_tpu_torch.ops.cross_entropy import (chunked_lm_head_ce,
+                                             softmax_cross_entropy)
+from ray_tpu_torch.ops.rope import rope_tables
+
+_PARALLEL = ("needs the parallelism slice (ROADMAP A5), which the PyTorch "
+             "port does not have yet")
 
 
 @dataclass(frozen=True)
@@ -174,3 +191,107 @@ def project_logits(x: torch.Tensor, params, cfg: TransformerConfig):
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits.float() / cap)
     return logits
+
+
+def _layer_body(cfg: TransformerConfig, x, lp, cos, sin, positions):
+    """One decoder layer, with the reference's casts."""
+    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    b, l, _ = h.shape
+    q = (h @ lp["wq"]).reshape(b, l, cfg.n_heads, cfg.head_dim)
+    k = (h @ lp["wk"]).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ lp["wv"]).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(q, lp["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, lp["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, cos, sin, positions)
+    k = apply_rope(k, cos, sin, positions)
+    attn = flash_attention(q, k, v, causal=True)
+    x = x + (attn.reshape(b, l, -1) @ lp["wo"]).to(x.dtype)
+
+    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    act = _act(cfg)
+    gate = act((h @ lp["w_gate"]).float())
+    up = (h @ lp["w_up"]).float()
+    return x + (gate * up).to(x.dtype) @ lp["w_down"]
+
+
+# Ops whose outputs each remat policy saves; everything else is recomputed
+# in the backward (the flash forward included, as the Pallas call is under
+# JAX's policies). "dots_nobatch" is jax's dots_with_no_batch_dims_saveable:
+# the projections, which reach aten.mm; "dots" also keeps batched products.
+_SAVED_OPS = {
+    "dots_nobatch": (torch.ops.aten.mm.default,),
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.bmm.default),
+}
+
+
+def _save_policy(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, cfg: TransformerConfig):
+    """body under activation checkpointing with cfg.remat_policy: "full"
+    recomputes everything, the others save what _SAVED_OPS lists."""
+    if cfg.remat_policy == "full":
+        context_fn = noop_context_fn
+    elif cfg.remat_policy in _SAVED_OPS:
+        context_fn = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_save_policy, _SAVED_OPS[cfg.remat_policy]))
+    else:
+        raise ValueError(
+            f"unknown remat_policy {cfg.remat_policy!r}: "
+            "expected 'full', 'dots', or 'dots_nobatch'")
+    return functools.partial(checkpoint, body, use_reentrant=False,
+                             context_fn=context_fn)
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh=None, positions: Optional[torch.Tensor] = None,
+            return_hidden: bool = False):
+    """Returns (logits [B, L, vocab], aux_loss scalar); with return_hidden,
+    the pre-lm_head hidden states [B, L, D] instead of logits (the
+    chunked-CE loss applies lm_head itself). tokens: [B, L] integers."""
+    if cfg.num_experts:
+        raise NotImplementedError(f"MoE layers {_PARALLEL}")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"a device mesh (attn_impl={cfg.attn_impl!r}, pipeline or "
+            f"sharded layers) {_PARALLEL}")
+    x = _embed_tokens(params, tokens, cfg)
+    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                           x.device)
+    body = functools.partial(_layer_body, cfg)
+    if cfg.remat:
+        body = _remat(body, cfg)
+    for lp in layer_params(params):
+        x = body(x, lp, cos, sin, positions)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
+    return project_logits(x, params, cfg), aux
+
+
+def forward_pipelined(params: Dict, tokens: torch.Tensor,
+                      cfg: TransformerConfig, mesh, num_microbatches=None):
+    """The reference's GPipe forward over a "pp" mesh axis."""
+    raise NotImplementedError(f"pipeline parallelism {_PARALLEL}")
+
+
+def loss_fn(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh=None, aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token LM loss (f32 scalar). tokens: [B, L]; predicts
+    tokens[:, 1:] from tokens[:, :-1]."""
+    labels = tokens[:, 1:]
+    if cfg.ce_chunk:
+        hidden, aux = forward(params, tokens[:, :-1], cfg, mesh,
+                              return_hidden=True)
+        loss = chunked_lm_head_ce(hidden, lm_head_weight(params, cfg), labels,
+                                  cfg.ce_chunk,
+                                  softcap=cfg.final_logit_softcap)
+        return loss + aux_weight * aux
+    logits, aux = forward(params, tokens[:, :-1], cfg, mesh)
+    loss = softmax_cross_entropy(logits, labels).mean()
+    return loss + aux_weight * aux

@@ -54,5 +54,8 @@ def rope_tables(head_dim: int, max_seq: int, theta: float,
                 device: torch.device):
     """rope_frequencies in f32, computed once per (head_dim, max_seq, theta,
     device). JAX folded the tables into each compiled step; eager code
-    would otherwise rebuild them on every engine step."""
-    return rope_frequencies(head_dim, max_seq, theta, device=device)
+    would otherwise rebuild them on every engine step. Built outside
+    inference mode, so tables first made by serving can still be saved for
+    a training step's backward."""
+    with torch.inference_mode(False):
+        return rope_frequencies(head_dim, max_seq, theta, device=device)

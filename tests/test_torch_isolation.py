@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it loads neither JAX nor any module of
-ray_tpu, and it never falls back to the CPU on its own."""
+ray_tpu (serving and one training step included), and it never falls back
+to the CPU on its own."""
 
 import pathlib
 import re
@@ -31,6 +32,12 @@ try:
 finally:
     rep.shutdown()
 assert len(out) == 3 and all(0 <= t < cfg.vocab_size for t in out), out
+from ray_tpu_torch.models import loss_fn
+params = init_params(cfg, seed=0, device="cpu")
+params["layers"]["wq"].requires_grad_(True)
+loss = loss_fn(params, torch.randint(0, cfg.vocab_size, (2, 9)), cfg)
+loss.backward()
+assert torch.isfinite(loss) and params["layers"]["wq"].grad is not None
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu"
              or m.startswith("ray_tpu."))
@@ -44,7 +51,7 @@ def test_port_imports_and_serves_without_jax_or_ray_tpu():
     assert proc.returncode == 0, proc.stderr
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith("MODULES")]
     assert line and line[0].endswith("BAD []"), proc.stdout
-    assert int(line[0].split()[1]) >= 14
+    assert int(line[0].split()[1]) >= 16
 
 
 def test_no_source_imports_jax_or_ray_tpu():
@@ -77,6 +84,8 @@ def test_missing_nvcc_raises_with_the_command(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(RuntimeError, match="/nonexistent/bin/nvcc .*rmsnorm.cu"):
         _build.load("rmsnorm")
+    with pytest.raises(RuntimeError, match="/nonexistent/bin/nvcc .*flash_attention.cu"):
+        _build.load("flash_attention")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.kernel_names() == ["rmsnorm"]
+    assert _build.kernel_names() == ["flash_attention", "rmsnorm"]
