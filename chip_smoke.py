@@ -8,7 +8,8 @@ prints no result line:
 
   device   the card's name, capability (must be 9.0) and power limit.
   build    builds every CUDA kernel in ray_tpu_torch/csrc (one nvcc per
-           source, all at once); seconds counted as set-up.
+           source, all at once); seconds counted as set-up; each flash
+           kernel's registers, spills (ptxas -v) and shared memory.
   kernels  the RMSNorm forward against its plain PyTorch version at the
            shapes the serving and training paths give it, in bf16 and
            f32, with the stated tolerance; times at those shapes (CUDA
@@ -30,7 +31,9 @@ prints no result line:
            forward, dq and dk/dv) against their plain versions at the
            training shapes and ragged ones, in bf16 and f32, with the
            stated tolerances; times at the training shapes beside the
-           plain version, the bound and one PyTorch library call.
+           plain version, the bound and one PyTorch library call; at the
+           training shape, SDPA's own bf16 error against the f32 plain
+           version beside the kernels' (a yardstick, not a gate).
   train    llama2-1b at full width and depth in bf16 (random weights from
            seed 0), dots_nobatch remat, batch 8 x seq 1024: loss_fn,
            backward and torch.optim.AdamW, 2 warm-up and 10 timed steps on
@@ -71,11 +74,18 @@ TIMED_SHAPES = ((8, 4096), (64, 4096), (8192, 2048))
 # The training step: llama2-1b, batch 8 x seq 1024 (bench.py's shape).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 8, 1024, 2, 10
 # (causal, Lq, Lk, head_dim, batch, heads) for the flash kernels' checks;
-# the 1024 case is the training step's shape.
+# the (1024, 1024) case is the training step's shape; the last three stress
+# the bf16 tensor-core tiling (causal Lq != Lk both ways, ragged tails).
 FLASH_CASES = ((True, 1, 1, 128, 2, 3), (True, 7, 7, 64, 2, 3),
                (True, 129, 129, 128, 2, 3), (True, 129, 129, 256, 2, 3),
                (False, 129, 70, 256, 2, 3), (False, 7, 129, 64, 2, 3),
-               (False, 1024, 129, 128, 1, 4), (True, 1024, 1024, 128, 8, 16))
+               (False, 1024, 129, 128, 1, 4), (True, 1024, 1024, 128, 8, 16),
+               (True, 200, 1000, 128, 2, 3), (True, 1000, 200, 256, 2, 3),
+               (False, 1000, 129, 64, 2, 3))
+# How each flash pass multiplies, by dtype.
+_TENSOR_CORES = "bf16: mma.sync tensor cores; f32: CUDA cores"
+FLASH_DESIGN = {"flash_fwd": _TENSOR_CORES, "flash_bwd_dq": "CUDA cores",
+                "flash_bwd_dkv": _TENSOR_CORES}
 RMS_BWD_ROWS = (1, 5, 8192)
 RMS_BWD_DIMS = (128, 2048, 4096)
 
@@ -172,12 +182,13 @@ def phase_device():
 
 def phase_build():
     from ray_tpu_torch import _build
+    from ray_tpu_torch.ops.flash_attention import kernel_report
 
     t0 = time.perf_counter()
     built = _build.build_all()
     secs = time.perf_counter() - t0
     emit({"phase": "build", "seconds": secs, "built": built,
-          "kernels": _build.kernel_names()})
+          "kernels": _build.kernel_names(), "flash_kernels": kernel_report()})
 
 
 def phase_kernels():
@@ -474,6 +485,7 @@ def phase_train_kernels():
     from ray_tpu_torch.ops.flash_attention import (_delta,
                                                    _flash_bwd_dkv_plain,
                                                    _flash_bwd_dq_plain,
+                                                   _flash_bwd_plain,
                                                    _flash_fwd_plain,
                                                    flash_bwd_dkv_cuda,
                                                    flash_bwd_dq_cuda,
@@ -633,9 +645,37 @@ def phase_train_kernels():
     lib_bwd["covers"] = "dq, dk and dv together (K4 + K5)"
     timed["flash_bwd_dq"]["library"] = lib_bwd
     timed["flash_bwd_dkv"]["library"] = lib_bwd
+
+    # A yardstick, not a gate: at the training shape, SDPA's bf16 outputs
+    # and the kernels' against the plain version in f32 on the same bf16
+    # inputs (the backward from the f32 o and lse).
+    f = [t.float() for t in (q, k, v, do)]
+    o32, lse32 = _flash_fwd_plain(f[0], f[1], f[2], True)
+    want = dict(zip(("o", "dq", "dk", "dv"),
+                    (o32, *_flash_bwd_plain(*f[:3], o32, lse32, f[3], True))))
+    del f, o32, lse32
+    out = sdpa(qg, kg, vg, is_causal=True)
+    sdpa_got = [out] + list(torch.autograd.grad(out, (qg, kg, vg), dot))
+    sdpa_got = dict(zip(want, (t.transpose(1, 2) for t in sdpa_got)))
+    kern_got = {"o": o,
+                "dq": flash_bwd_dq_cuda(q, k, v, do, lse, delta, True)}
+    kern_got["dk"], kern_got["dv"] = flash_bwd_dkv_cuda(q, k, v, do, lse,
+                                                        delta, True)
+
+    def error(got, ref):
+        got = got.detach().float()
+        return {"max_abs_err": float((got - ref).abs().max()),
+                "rel_l2": float((got - ref).norm() / ref.norm())}
+
+    for name, outs in (("flash_fwd", ("o",)), ("flash_bwd_dq", ("dq",)),
+                       ("flash_bwd_dkv", ("dk", "dv"))):
+        timed[name]["error_vs_f32_plain"] = {
+            x: {"kernel": error(kern_got[x], want[x]),
+                "sdpa": error(sdpa_got[x], want[x])} for x in outs}
     emit({"phase": "train_kernels_timed", "flash_sdp_enabled":
           torch.backends.cuda.flash_sdp_enabled(), "timed": timed})
     del q, k, v, do, o, lse, delta, qt, kt, vt, dot, qg, kg, vg
+    del want, out, sdpa_got, kern_got
     torch.cuda.empty_cache()
     return err, timed
 
@@ -960,6 +1000,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library"]["ms"],
             "shape": t["shape"], "dtype": t["dtype"]})
+        if kname in FLASH_DESIGN:
+            records[-1]["design"] = FLASH_DESIGN[kname]
     missing = [r["name"] for r in records if r["launches"] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
     emit({"kernels": records})

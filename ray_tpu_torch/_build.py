@@ -5,7 +5,9 @@ library with a plain C interface, loaded with ctypes (no PyTorch headers,
 no ninja: a build takes seconds). Libraries land in `ray_tpu_torch/_build/`
 under a name keyed by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one is reused. `build_all()` starts one
-`nvcc` per source at once and waits for all of them.
+`nvcc` per source at once and waits for all of them. nvcc runs with
+`-Xptxas -v`; its log is kept beside the library, and `ptxas_report()`
+reads each kernel's registers, static shared memory and spills from it.
 
 Nothing here runs at import: the CPU tests import every module, and this
 host may have no `nvcc` at all.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +29,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -69,6 +72,7 @@ def _finish(name: str, proc, tmp: Path, out: Path, cmd: List[str]) -> None:
         raise RuntimeError(
             f"nvcc failed building {name!r} (exit {proc.returncode}): "
             f"{' '.join(cmd)}\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -106,3 +110,38 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, *_start(name))
             lib = _libs[name] = ctypes.CDLL(str(out))
     return lib
+
+
+_PTXAS_PATTERNS = (
+    ("stack", re.compile(r"(\d+) bytes stack frame")),
+    ("spill_stores", re.compile(r"(\d+) bytes spill stores")),
+    ("spill_loads", re.compile(r"(\d+) bytes spill loads")),
+    ("registers", re.compile(r"Used (\d+) registers")),
+    ("static_smem", re.compile(r"(\d+) bytes smem")),
+)
+
+
+def ptxas_report(name: str) -> List[dict]:
+    """Each entry function of `csrc/<name>.cu` as ptxas reported it when
+    the library was built: {"kernel": mangled name, "registers",
+    "spill_stores", "spill_loads", "stack", "static_smem"} (bytes; dynamic
+    shared memory is the launcher's and is not in the log)."""
+    log = _target(name).with_suffix(".log").read_text()
+    entries: Dict[str, dict] = {}
+    kernels = []
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernels.append(m.group(1))
+        m = m or re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = entries.setdefault(m.group(1), {"kernel": m.group(1)})
+            continue
+        if current is None:
+            continue
+        for key, pat in _PTXAS_PATTERNS:
+            m = pat.search(line)
+            if m:
+                current[key] = int(m.group(1))
+    return [entries[k] for k in dict.fromkeys(kernels)]

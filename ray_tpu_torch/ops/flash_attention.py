@@ -4,9 +4,13 @@ dk/dv, their plain PyTorch versions, and the autograd wiring.
 Counterpart of ray_tpu/ops/flash_attention.py. In `csrc/flash_attention.cu`,
 `rt_flash_fwd` replaces the Pallas TPU kernel `_flash_fwd_kernel`,
 `rt_flash_bwd_dq` replaces `_flash_bwd_dq_kernel` and `rt_flash_bwd_dkv`
-replaces `_flash_bwd_dkv_kernel`. `_flash_fwd_plain` and `_flash_bwd_plain`
-compute what those kernels compute (same masking, same lse), over whole
-score matrices; `flash_attention_plain` is `_flash_attention_xla`.
+replaces `_flash_bwd_dkv_kernel`. The C entry points pick their kernel by
+dtype: bf16 forward and dk/dv multiply on the tensor cores (`mma.sync`,
+p and ds rounded to bf16 before their products, as FlashAttention-2
+does); f32 inputs, and dq in both dtypes, run on the CUDA cores in f32.
+`_flash_fwd_plain` and `_flash_bwd_plain` compute what those kernels
+compute (same masking, same lse), over whole score matrices;
+`flash_attention_plain` is `_flash_attention_xla`.
 
 `flash_attention` takes the reference's `[batch, seq, heads, head_dim]`
 layout. On a CUDA tensor it runs `_FlashAttention` (the reference's
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import torch
 
@@ -261,6 +266,37 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
 
 
 flash_bwd_dkv_cuda.launches = 0
+
+
+_PASS = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
+
+
+def kernel_report() -> list:
+    """Each flash kernel in the built library: its pass, route, dtype and
+    head width, ptxas's registers, spills and stack (bytes), and the
+    dynamic shared memory its launcher requests per block. Builds the
+    library on first use (needs nvcc)."""
+    smem = _build.load("flash_attention").rt_flash_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_longlong
+    out = []
+    for rec in _build.ptxas_report("flash_attention"):
+        pass_, mma, tail = re.search(
+            r"(flash_(?:fwd|bwd_dq|bwd_dkv))(_mma)?_kernelI(.*)",
+            rec["kernel"]).groups()
+        bf16 = bool(mma) or tail.startswith("13__nv_bfloat16")
+        args = [int(a) for a in re.findall(r"Li(\d+)E", tail)]
+        out.append({
+            "kernel": f"{pass_}{mma or ''}_kernel<{str(args)[1:-1]}>",
+            "pass": pass_, "route": "tensor cores" if mma else "CUDA cores",
+            "dtype": "bfloat16" if bf16 else "float32", "d": args[0],
+            "registers": rec.get("registers"),
+            "spill_stores": rec.get("spill_stores"),
+            "spill_loads": rec.get("spill_loads"), "stack": rec.get("stack"),
+            "static_smem": rec.get("static_smem", 0),
+            "dynamic_smem": smem(_PASS[pass_], int(bf16), args[0]),
+        })
+    return out
 
 
 # ---------------------------------------------------------------------------

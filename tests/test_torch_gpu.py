@@ -16,7 +16,8 @@ f32 from the same bf16 inputs: relative L2 error at most 4e-3 (the
 outputs are rounded once to bf16, whose unit roundoff is 2^-9 = 2e-3) and
 no element further than 2^-6 of the largest reference magnitude (or,
 where the reference vanishes, as dq and dk of a single key do, no
-element above 1e-5). The
+element above 1e-5). dk and dv are summed without atomics, so two calls
+on the same inputs give the same bits. The
 training step: loss within rtol 2e-4, each gradient leaf within
 rtol=atol=2e-3 and a relative L2 error of at most 1e-3.
 """
@@ -159,6 +160,8 @@ def test_rmsnorm_autograd_runs_both_kernels(cuda_device):
     (True, 1, 1, 128), (True, 7, 7, 64), (True, 129, 129, 128),
     (True, 1024, 1024, 128), (False, 129, 70, 256), (False, 7, 129, 128),
     (True, 129, 129, 256), (True, 70, 129, 64),
+    # The bf16 tensor-core tiling: causal Lq != Lk both ways, ragged tails.
+    (True, 200, 1000, 128), (True, 1000, 200, 256), (False, 1000, 129, 64),
 ])
 def test_flash_kernels_match_plain(cuda_device, causal, lq, lk, d, dtype):
     tdt = getattr(torch, dtype)
@@ -194,6 +197,28 @@ def test_flash_kernels_match_plain(cuda_device, causal, lq, lk, d, dtype):
         for got, ref in zip((o, dq, dk, dv), (o_ref, *grads_ref)):
             assert got.dtype == tdt
             _assert_bf16_close(got, ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_dkv_kernel_is_deterministic(cuda_device, d, dtype):
+    """dk and dv are summed without atomics: two calls on the same inputs
+    give the same bits."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+
+    def rand(n):
+        return torch.randn((2, n, 4, d), generator=gen,
+                           device=cuda_device).to(tdt)
+
+    q, k, v, do = rand(300), rand(300), rand(300), rand(300)
+    o, lse = flash_fwd_cuda(q, k, v, True)
+    delta = _delta(o, do)
+    first = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
+    second = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_strided_and_gqa_on_card(cuda_device):

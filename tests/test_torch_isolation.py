@@ -89,3 +89,52 @@ def test_missing_nvcc_raises_with_the_command(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert _build.kernel_names() == ["flash_attention", "rmsnorm"]
+
+
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_e1dd8ece20flash_fwd_mma_kernelILi128ELi64EEEvPK13__nv_bfloat16S3_S3_PS1_PfiiiNS_7StridesES6_S6_S6_fi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_e1dd8ece20flash_fwd_mma_kernelILi128ELi64EEEvPK13__nv_bfloat16S3_S3_PS1_PfiiiNS_7StridesES6_S6_S6_fi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 221 registers, used 1 barriers, 512 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_e1dd8ece19flash_bwd_dq_kernelIfLi128ELi64ELi64EEEvPKT_S3_S3_S3_PKfS5_PS1_iiiNS_7StridesES7_S7_S7_S7_fi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_e1dd8ece19flash_bwd_dq_kernelIfLi128ELi64ELi64EEEvPKT_S3_S3_S3_PKfS5_PS1_iiiNS_7StridesES7_S7_S7_S7_fi
+    24 bytes stack frame, 20 bytes spill stores, 44 bytes spill loads
+ptxas info    : Used 128 registers, 1024 bytes smem, 512 bytes cmem[0]
+ptxas info    : Function properties for a_device_helper
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+"""
+
+
+def test_build_report_reads_ptxas_log(monkeypatch, tmp_path):
+    """The ptxas log kept beside a library gives each entry function's
+    registers, spills and static shared memory; the flash report names each
+    kernel's pass, route, dtype and width beside its dynamic shared memory
+    (device helpers are left out)."""
+    import importlib
+
+    from ray_tpu_torch import _build
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    lib = tmp_path / "libflash_attention-0.so"
+    lib.with_suffix(".log").write_text(_PTXAS_LOG)
+    monkeypatch.setattr(_build, "_target", lambda name: lib)
+    report = _build.ptxas_report("flash_attention")
+    assert [r["registers"] for r in report] == [221, 128]
+    assert report[1]["spill_stores"] == 20 and report[1]["spill_loads"] == 44
+    assert report[1]["static_smem"] == 1024 and "static_smem" not in report[0]
+
+    class Lib:
+        @staticmethod
+        def rt_flash_smem_bytes(pass_, dtype, d):
+            return 1000 * pass_ + 100 * dtype + d
+
+    monkeypatch.setattr(_build, "load", lambda name: Lib)
+    fwd, dq = fa.kernel_report()
+    assert (fwd["kernel"], fwd["pass"], fwd["route"], fwd["dtype"], fwd["d"],
+            fwd["dynamic_smem"]) == ("flash_fwd_mma_kernel<128, 64>",
+                                     "flash_fwd", "tensor cores", "bfloat16",
+                                     128, 228)
+    assert (dq["kernel"], dq["route"], dq["dtype"], dq["dynamic_smem"],
+            dq["spill_loads"]) == ("flash_bwd_dq_kernel<128, 64, 64>",
+                                   "CUDA cores", "float32", 1128, 44)

@@ -18,9 +18,17 @@ cross-entropy: loss within rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 /
 atol 1e-5, the chunked loss within rtol 1e-5 and its gradients within
 rtol 2e-4 / atol 2e-5, as the reference's tests hold its own versions.
 
+The bf16 tensor-core flash kernels round p (forward) and p^T, ds^T
+(dk/dv) to bf16 before their products; their arithmetic, emulated on the
+CPU, is held to the plain versions in f32 with the bf16 tolerance the
+card's checks apply (relative L2 <= 4e-3, max <= 2^-6 max|ref|), so the
+design meets the tolerance before any kernel runs.
+
 The CUDA kernels themselves are held to the plain versions on the card
 (tests/test_torch_gpu.py, and chip_smoke.py).
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -38,9 +46,11 @@ from ray_tpu.ops.rope import rope_frequencies as jax_rope_frequencies
 from ray_tpu_torch.ops import (apply_rope, flash_attention, rmsnorm,
                                rope_frequencies, softmax_cross_entropy)
 from ray_tpu_torch.ops.cross_entropy import chunked_lm_head_ce
-from ray_tpu_torch.ops.flash_attention import (_flash_bwd_plain,
+from ray_tpu_torch.ops.flash_attention import (_delta,
+                                               _flash_bwd_dkv_plain,
+                                               _flash_bwd_plain,
                                                _flash_fwd_plain,
-                                               _FlashAttention,
+                                               _FlashAttention, _valid,
                                                flash_attention_plain,
                                                flash_bwd_dkv_cuda,
                                                flash_bwd_dq_cuda,
@@ -284,6 +294,106 @@ def test_flash_bwd_plain_matches_autograd_of_plain():
     for t, g in zip(ts, got):
         np.testing.assert_allclose(g.numpy(), t.grad.numpy(), rtol=1e-5,
                                    atol=1e-5)
+
+
+def _assert_bf16_close(got, want):
+    """The bf16 tolerance that tests/test_torch_gpu.py and chip_smoke.py
+    hold the bf16 kernels to: relative L2 <= 4e-3 and no element further
+    than 2^-6 of the largest reference magnitude, or, where the reference
+    vanishes, no element above 1e-5."""
+    got, want = got.float(), want.float()
+    worst = float((got - want).abs().max())
+    if worst <= 1e-5:
+        return
+    rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    assert rel <= 4e-3, rel
+    assert worst <= 2 ** -6 * float(want.abs().max()), worst
+
+
+_LOG2E = 1.4426950408889634
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _tensor_core_fwd(q, k, v, causal):
+    """The bf16 tensor-core forward's arithmetic, on the CPU: f32 scores of
+    bf16 inputs, scaled by sm_scale * log2(e) and exponentiated with exp2
+    against a running max over kv tiles (64 keys, 32 at d = 256); p
+    rounded to bf16 before p v, its row sum l taken in f32; o rounded once.
+    Returns (o in bf16, lse f32 [b, h, lq])."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    bk = 32 if d == 256 else 64
+    valid = _valid(lq, lk, causal, "cpu")
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((b, h, lq, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, h, lq, d)
+    for k0 in range(0, lk, bk):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + bk])
+        s = (s * (d ** -0.5 * _LOG2E)).masked_fill(~valid[:, k0:k0 + bk],
+                                                   -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhqk,bkhd->bhqd", _bf16(p),
+                                        vf[:, k0:k0 + bk])
+        m = m_new
+    l_safe = l.clamp_min(1e-20)
+    o = (acc / l_safe).permute(0, 2, 1, 3).to(torch.bfloat16)
+    return o, (m * math.log(2.0) + torch.log(l_safe))[..., 0]
+
+
+def _tensor_core_dkv(q, k, v, do, lse, delta, causal):
+    """The bf16 tensor-core dk/dv's arithmetic, on the CPU: p^T = exp(s -
+    lse) and ds^T = p^T (dp^T - delta) in f32, each rounded to bf16 before
+    its product (dv = p^T do, dk = sm_scale ds^T q), f32 sums, outputs
+    rounded once."""
+    lq, lk, d = q.shape[1], k.shape[1], q.shape[-1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (d ** -0.5 * _LOG2E)
+    p = torch.exp2(s - lse[..., None] * _LOG2E)
+    p = p.masked_fill(~_valid(lq, lk, causal, "cpu"), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), dof)
+    dk = d ** -0.5 * torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), qf)
+    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+# chip_smoke.py's FLASH_CASES up to L = 129, and the training step's
+# sequence at b = 1, h = 2: (causal, lq, lk, d, b, h).
+@pytest.mark.parametrize("causal,lq,lk,d,b,h", [
+    (True, 1, 1, 128, 2, 3), (True, 7, 7, 64, 2, 3),
+    (True, 129, 129, 128, 2, 3), (True, 129, 129, 256, 2, 3),
+    (False, 129, 70, 256, 2, 3), (False, 7, 129, 64, 2, 3),
+    (True, 1024, 1024, 128, 1, 2),
+])
+def test_tensor_core_rounding_meets_bf16_tolerance(causal, lq, lk, d, b, h):
+    """The bf16 forward and dk/dv kernels round p, p^T and ds^T to bf16
+    before their products (they feed the tensor cores from registers). Their
+    arithmetic, emulated here on the CPU, stays within the bf16 tolerance
+    of the plain versions in f32 on the same bf16 inputs."""
+    rng = np.random.default_rng(lq * 7 + lk + d)
+
+    def rand(n):
+        x = rng.standard_normal((b, n, h, d)).astype(np.float32)
+        return torch.from_numpy(x).to(torch.bfloat16)
+
+    q, k, v, do = rand(lq), rand(lk), rand(lk), rand(lq)
+    f = [t.float() for t in (q, k, v, do)]
+    o, lse = _tensor_core_fwd(q, k, v, causal)
+    o_ref, lse_ref = _flash_fwd_plain(f[0], f[1], f[2], causal)
+    _assert_bf16_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-4, atol=2e-4)
+    delta = _delta(o, do)
+    dk, dv = _tensor_core_dkv(q, k, v, do, lse, delta, causal)
+    dk_ref, dv_ref = _flash_bwd_dkv_plain(*f, lse, delta, causal)
+    _assert_bf16_close(dk, dk_ref)
+    _assert_bf16_close(dv, dv_ref)
 
 
 @pytest.mark.parametrize("fn,args", [
