@@ -31,9 +31,11 @@ prints no result line:
            forward, dq and dk/dv) against their plain versions at the
            training shapes and ragged ones, in bf16 and f32, with the
            stated tolerances; times at the training shapes beside the
-           plain version, the bound and one PyTorch library call; at the
-           training shape, SDPA's own bf16 error against the f32 plain
-           version beside the kernels' (a yardstick, not a gate).
+           plain version, the bound and one PyTorch library call, and the
+           rmsnorm backward's beside the library's at every checked
+           shape; at the training shape, SDPA's own bf16 error against the
+           f32 plain version beside the kernels' (a yardstick, not a
+           gate).
   train    llama2-1b at full width and depth in bf16 (random weights from
            seed 0), dots_nobatch remat, batch 8 x seq 1024: loss_fn,
            backward and torch.optim.AdamW, 2 warm-up and 10 timed steps on
@@ -84,7 +86,7 @@ FLASH_CASES = ((True, 1, 1, 128, 2, 3), (True, 7, 7, 64, 2, 3),
                (False, 1000, 129, 64, 2, 3))
 # How each flash pass multiplies, by dtype.
 _TENSOR_CORES = "bf16: mma.sync tensor cores; f32: CUDA cores"
-FLASH_DESIGN = {"flash_fwd": _TENSOR_CORES, "flash_bwd_dq": "CUDA cores",
+FLASH_DESIGN = {"flash_fwd": _TENSOR_CORES, "flash_bwd_dq": _TENSOR_CORES,
                 "flash_bwd_dkv": _TENSOR_CORES}
 RMS_BWD_ROWS = (1, 5, 8192)
 RMS_BWD_DIMS = (128, 2048, 4096)
@@ -588,6 +590,28 @@ def phase_train_kernels():
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
     }}
     del x, w, g, xr, wr
+    # The RMSNorm backward beside autograd of F.rms_norm at every checked
+    # shape (bf16), the training step's included.
+    timed["rmsnorm_bwd"]["shapes"] = []
+    for d in RMS_BWD_DIMS:
+        for rows in RMS_BWD_ROWS:
+            x = torch.randn((rows, d), generator=gen, device=dev).to(bf)
+            w = (torch.randn(d, generator=gen, device=dev) * 0.1 + 1).to(bf)
+            g = torch.randn((rows, d), generator=gen, device=dev).to(bf)
+            xr = x.detach().requires_grad_(True)
+            wr = w.detach().requires_grad_(True)
+            nb = 3 * rows * d * 2 + 2 * d * 2
+            timed["rmsnorm_bwd"]["shapes"].append({
+                "shape": [rows, d],
+                "ms": graph_ms(lambda: rmsnorm_bwd_cuda(x, w, g, EPS),
+                               calls=50),
+                "library_ms": fwd_bwd_minus_fwd_ms(
+                    lambda: F.rms_norm(xr, (d,), wr, EPS),
+                    lambda: torch.autograd.grad(
+                        F.rms_norm(xr, (d,), wr, EPS), (xr, wr), g),
+                    calls=50)["ms"],
+                "bound_ms": nb / HBM_BYTES_PER_S * 1e3})
+            del x, w, g, xr, wr
 
     b, L, h, hd = TRAIN_BATCH, TRAIN_SEQ, 16, 128
 
@@ -701,7 +725,7 @@ def _kernel_group(name: str) -> str:
     for key, group in (("flash_fwd", "flash_fwd"), ("flash_bwd_dq", "flash_dq"),
                        ("flash_bwd_dkv", "flash_dkv"),
                        ("rmsnorm_bwd", "rmsnorm_bwd"),
-                       ("rmsnorm_dw", "rmsnorm_bwd"),
+                       ("rmsnorm_dw", "rmsnorm_dw_reduce"),
                        ("rmsnorm_fwd", "rmsnorm_fwd")):
         if key in n:
             return group

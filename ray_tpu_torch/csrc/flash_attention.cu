@@ -16,26 +16,26 @@
 // bit for bit.
 //
 // Each entry point picks its kernel by dtype:
-//   bf16 forward, bf16 dk/dv -> tensor-core kernels (flash_fwd_mma_kernel,
-//                               flash_bwd_dkv_mma_kernel);
-//   f32 forward, f32 dk/dv, dq in both dtypes -> CUDA-core kernels
-//                               (flash_fwd_kernel, flash_bwd_dkv_kernel,
-//                               flash_bwd_dq_kernel).
+//   bf16 -> tensor-core kernels (flash_fwd_mma_kernel, flash_bwd_dq_mma_kernel,
+//           flash_bwd_dkv_mma_kernel);
+//   f32  -> CUDA-core kernels (flash_fwd_kernel, flash_bwd_dq_kernel,
+//           flash_bwd_dkv_kernel).
 // The tensor cores have no full-precision f32 product (TF32 keeps about
 // three decimal digits), so f32 stays on the CUDA cores.
 //
 // What bounds them. At the training shape ([b*h = 128, L = 1024, d = 128],
 // bf16, causal) the forward does 4 * 128 * 128 * (1024 * 1025 / 2) = 34.4
 // GFLOP of products against 134 MB of q, k, v and o: 35 us at the tensor
-// cores' 989 TFLOP/s and 40 us at 3.35 TB/s, so its bound is the bytes; dk/dv
-// does twice the products (68.8 GFLOP, 70 us) against ~1.7x the bytes and
-// is bound by the operations. Both are far above the line where the
+// cores' 989 TFLOP/s and 40 us at 3.35 TB/s, so its bound is the bytes; dq
+// does three products a score (51.6 GFLOP, 52 us) and dk/dv four (68.8
+// GFLOP, 70 us) against ~1.7x the bytes, and both are bound by the
+// operations. Both are far above the line where the
 // tensor cores, not memory, limit: what matters is that every product runs
 // on the tensor cores and that the operands reach them without stalls.
 // The CUDA-core kernels multiply in f32 FMA (67 TFLOP/s at best) and are
 // bound by that rate and by shared-memory bandwidth.
 //
-// Tensor-core design (bf16), the same for the forward and dk/dv:
+// Tensor-core design (bf16), the same for the forward, dq and dk/dv:
 // - Products are mma.sync.m16n8k16 (bf16 in, f32 accumulate). A warp owns
 //   16 rows of the block's tile; operands come from shared memory through
 //   ldmatrix.x4 (.trans where the tile is row-major along the reduced axis:
@@ -43,14 +43,15 @@
 // - Tiles stay bf16 in shared memory (half the bytes of f32, so more fits),
 //   stored as 16-byte chunks XOR-swizzled by row % 8: the eight rows that
 //   one ldmatrix phase reads fall on distinct banks.
-// - Streamed tiles (K, V for the forward; Q, dO, lse, delta for dk/dv) are
+// - Streamed tiles (K, V for the forward and dq; Q, dO, lse, delta for dk/dv) are
 //   copied with cp.async into a two-stage ring: tile j + 1 is in flight
 //   while tile j is multiplied. Rows at or beyond Lq / Lk are zero-filled by
 //   the copy itself (src-size 0) and their scores masked. [b, L, h, d]
 //   inputs are read through their strides; no padded or transposed copy.
 // - The f32 accumulator of one product, rounded to bf16, is the A operand
 //   of the next (the C layout of two n8 tiles is the A layout of one k16
-//   slice): p (forward) and p^T, ds^T (dk/dv) never touch shared memory.
+//   slice): p (forward), ds (dq) and p^T, ds^T (dk/dv) never touch shared
+//   memory.
 // - Softmax in registers: scores scaled by sm_scale * log2(e) in f32 (q is
 //   not pre-scaled in bf16), exp2f, row max and sum over the quad of lanes
 //   that share a row (__shfl_xor_sync 1 and 2).
@@ -66,10 +67,23 @@
 //   * 4 f32 registers a thread). At d = 256 two warps share each 16 kv rows,
 //   each owning half of dk and dv's columns, and both compute the full
 //   S^T and dP^T (8 warps; the score products are done twice).
-// - Outputs are staged through the warp's own rows of shared memory and
+// - dq: one block per (64 q rows, batch * head), 4 warps of 16 q rows; the
+//   longest causal q tiles go first. Q and dO stay resident; K and V of one
+//   kv tile (64 rows at d = 64 and 128, 32 at d = 256) land together as one
+//   cp.async group while the previous tile is multiplied. Per tile a warp
+//   computes S = Q K^T and dP = dO V^T (K and V as B operands), p = exp2(s
+//   * sm_scale * log2(e) - lse * log2(e)) and ds = p (dp - delta) in f32
+//   registers (lse and delta of the thread's two rows held in registers,
+//   0 past Lq), then dq += ds K with ds as the A operand and K read again
+//   from the same tile with ldmatrix.trans. dq stays in f32 registers and
+//   is scaled by sm_scale once at the end. At d = 256 two warps share each
+//   16 q rows, each owning half of dq's columns, and both compute the full
+//   S and dP (8 warps), so dq stays at 64 f32 registers a thread.
+// - Outputs are staged through shared memory that no warp reads any more
+//   (the warp's own Q rows in the forward; Q in dq; K and V in dk/dv) and
 //   written with 16-byte stores.
 //
-// CUDA-core design (f32, and dq): threads 256 per block as a 16 x 16 grid
+// CUDA-core design (f32): threads 256 per block as a 16 x 16 grid
 // (ty = tid / 16, tx = tid % 16). A block owns one (batch, head) pair and
 // one tile of rows: BQ query rows (forward, dq) or BK key rows (dk/dv), and
 // loops over the tiles of the other side - kv tiles up to the diagonal for
@@ -240,7 +254,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out, int64_t ls, int 
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core kernels: the f32 forward and dk/dv, and dq for both dtypes.
+// CUDA-core kernels (f32): the forward, dq and dk/dv.
 //
 // Forward: one block per (q tile, batch * head).
 // Shared memory: Q [BQ][D+4] (pre-scaled by sm_scale, as the reference
@@ -508,6 +522,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMmaWarps = 4;   // warps along the block's rows (16 rows each)
 constexpr int kFwdBQ = 64;     // forward: q rows per block
 constexpr int kDkvBK = 64;     // dk/dv: kv rows per block
+constexpr int kDqBQ = 64;      // dq: q rows per block
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -924,10 +939,138 @@ __global__ void __launch_bounds__(kMmaWarps * 32 * DSPLIT)
                         threadIdx.x);
 }
 
+// dq: one block per (64 q rows, batch * head), over kv tiles up to the
+// diagonal. 4 * DSPLIT warps: warp w owns q rows 16 (w % 4).. and the n8
+// tiles (w / 4) NDW.. of dq. Shared memory: Q, dO [64][D] resident; two
+// stages of {K [BK][D], V [BK][D]}.
+template <int D, int BK, int DSPLIT>
+__global__ void __launch_bounds__(kMmaWarps * 32 * DSPLIT)
+    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            bf16* __restrict__ dq, int H, int Lq, int Lk, Strides qs, Strides ks,
+                            Strides vs, Strides dos, Strides dqs, float sm_scale, int causal) {
+  constexpr int NT = kMmaWarps * 32 * DSPLIT, BQ = kDqBQ;
+  constexpr int NS = BK / 8;           // n8 tiles of a warp's S and dP rows
+  constexpr int NDW = D / 8 / DSPLIT;  // n8 tiles of a warp's dq rows
+  constexpr uint32_t kTileQ = BQ * D * 2, kTileK = BK * D * 2;
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  const uint32_t sQ = smem_u32(smem_mma), sDO = sQ + kTileQ, sKV = sDO + kTileQ;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = (warp % kMmaWarps) * 16;
+  const int c_own = (warp / kMmaWarps) * NDW;
+  const int n_qt = (Lq + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * BQ;  // longest tiles first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  int n_kv = (Lk + BK - 1) / BK;
+  if (causal) n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);
+
+  // Stage st of the ring holds K then V of one kv tile; one group per tile.
+  auto load_kv = [&](int t, int st) {
+    const uint32_t at = sKV + st * 2 * kTileK;
+    cp_tile<D, BK, NT>(at, kb, ks.l, t * BK, Lk);
+    cp_tile<D, BK, NT>(at + kTileK, vb, vs.l, t * BK, Lk);
+  };
+  cp_tile<D, BQ, NT>(sQ, q + b * qs.b + h * qs.h, qs.l, q0, Lq);
+  cp_tile<D, BQ, NT>(sDO, dout + b * dos.b + h * dos.h, dos.l, q0, Lq);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // This thread's rows g and g + 8 of the warp's 16: lse (in log2 units)
+  // and delta; 0 past Lq, as the reference pads them.
+  const int qpos[2] = {q0 + wr + g, q0 + wr + g + 8};
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t at = static_cast<int64_t>(bh) * Lq + qpos[r];
+    lse2[r] = qpos[r] < Lq ? lse[at] * kLog2e : 0.f;
+    dlt[r] = qpos[r] < Lq ? delta[at] : 0.f;
+  }
+  const float scale2 = sm_scale * kLog2e;
+  float acc[NDW][4];
+#pragma unroll
+  for (int n = 0; n < NDW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * BK;
+    const uint32_t sKt = sKV + (t & 1) * 2 * kTileK, sVt = sKt + kTileK;
+    cp_async_wait<0>();  // Q, dO and this tile have landed
+    __syncthreads();     // ... for every thread; the other stage is free
+    if (t + 1 < n_kv) load_kv(t + 1, (t + 1) & 1);
+    cp_async_commit();
+
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows, unscaled.
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t aq[4], ao[4];
+      ldsm_x4(aq, sQ + lds_rows<D>(wr, 2 * kc, lane));
+      ldsm_x4(ao, sDO + lds_rows<D>(wr, 2 * kc, lane));
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, sKt + lds_b<D>(16 * j, 2 * kc, lane));
+        ldsm_x4(bv, sVt + lds_b<D>(16 * j, 2 * kc, lane));
+        mma_bf16(s[2 * j], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * j + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[2 * j], ao, bv[0], bv[1]);
+        mma_bf16(dp[2 * j + 1], ao, bv[2], bv[3]);
+      }
+    }
+    // p = exp(s * sm_scale - lse), masked scores at -1e30; ds = p (dp - delta),
+    // in place of dp. Only tiles that cross Lk or the diagonal are masked.
+    const bool edge = k0 + BK > Lk || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+        const bool ok = !edge || valid_pos(qpos[r], kpos, Lq, Lk, causal);
+        const float p = exp2f((ok ? s[j][e] * scale2 : kNegInf) - lse2[r]);
+        dp[j][e] = p * (dp[j][e] - dlt[r]);
+      }
+    // dq += ds K over this tile's kv rows: ds from registers (rounded to
+    // bf16), K read again as the B operand along kv.
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t a[4];
+      acc_to_a(a, dp[2 * kc], dp[2 * kc + 1]);
+#pragma unroll
+      for (int j = 0; j < NDW / 2; ++j) {
+        uint32_t bb[4];
+        ldsm_x4_trans(bb, sKt + lds_rows<D>(16 * kc, c_own + 2 * j, lane));
+        mma_bf16(acc[2 * j], a, bb[0], bb[1]);
+        mma_bf16(acc[2 * j + 1], a, bb[2], bb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with Q: stage dq there
+#pragma unroll
+  for (int n = 0; n < NDW; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(smem_mma + swz<D>(wr + g + 8 * r, c_own + n) + 4 * t4) =
+          pack_bf16(acc[n][2 * r] * sm_scale, acc[n][2 * r + 1] * sm_scale);
+  __syncthreads();
+  store_tile<D, BQ, NT>(dq + b * dqs.b + h * dqs.h, dqs.l, q0, Lq, smem_mma, threadIdx.x);
+}
+
 // ---------------------------------------------------------------------------
 // Host side.
 
-// CUDA-core tiles (f32, and dq).
+// CUDA-core tiles (f32).
 template <int D> struct Tiles;
 template <> struct Tiles<64> { static constexpr int BQ = 64, BK = 64; };
 template <> struct Tiles<128> { static constexpr int BQ = 64, BK = 64; };
@@ -943,6 +1086,11 @@ template <int D> struct DkvMma;
 template <> struct DkvMma<64> { static constexpr int BQ = 64, DSPLIT = 1; };
 template <> struct DkvMma<128> { static constexpr int BQ = 32, DSPLIT = 1; };
 template <> struct DkvMma<256> { static constexpr int BQ = 32, DSPLIT = 2; };
+// dq's kv rows per stage and warps per 16 q rows.
+template <int D> struct DqMma;
+template <> struct DqMma<64> { static constexpr int BK = 64, DSPLIT = 1; };
+template <> struct DqMma<128> { static constexpr int BK = 64, DSPLIT = 1; };
+template <> struct DqMma<256> { static constexpr int BK = 32, DSPLIT = 2; };
 
 constexpr size_t fwd_smem(int D, int BQ, int BK) {
   return sizeof(float) * ((BQ + BK) * (D + kPad) + BQ * (BK + kPad));
@@ -959,6 +1107,8 @@ constexpr size_t fwd_mma_smem(int D, int BK) { return 2 * (kFwdBQ * D + 4 * BK *
 constexpr size_t dkv_mma_smem(int D, int BQ) {
   return 2 * 2 * kDkvBK * D + 2 * (2 * 2 * BQ * D + 2 * 4 * BQ);
 }
+// bf16 Q and dO, two stages of K and V.
+constexpr size_t dq_mma_smem(int D, int BK) { return 2 * (2 * kDqBQ * D + 2 * 2 * BK * D); }
 
 Strides strides_at(const int64_t* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
@@ -1019,6 +1169,24 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
+                  const float* lse, const float* delta, void* dq, int B, int H, int Lq, int Lk,
+                  const int64_t* st, float sm_scale, int causal, cudaStream_t s) {
+  constexpr int BK = DqMma<D>::BK, DSPLIT = DqMma<D>::DSPLIT;
+  constexpr size_t smem = dq_mma_smem(D, BK);
+  auto kernel = flash_bwd_dq_mma_kernel<D, BK, DSPLIT>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Lq + kDqBQ - 1) / kDqBQ, B * H);
+  kernel<<<grid, kMmaWarps * 32 * DSPLIT, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Lq, Lk,
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
+      strides_at(st, 4), sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, void* dk, void* dv, int B, int H, int Lq, int Lk,
@@ -1063,7 +1231,8 @@ template <int D>
 long long smem_of(int pass, int dtype) {
   if (pass == 0) return dtype == 1 ? fwd_mma_smem(D, FwdMma<D>::BK)
                                    : fwd_smem(D, Tiles<D>::BQ, Tiles<D>::BK);
-  if (pass == 1) return dq_smem(D, Tiles<D>::BQ, Tiles<D>::BK);
+  if (pass == 1) return dtype == 1 ? dq_mma_smem(D, DqMma<D>::BK)
+                                   : dq_smem(D, Tiles<D>::BQ, Tiles<D>::BK);
   if (pass == 2) return dtype == 1 ? dkv_mma_smem(D, DkvMma<D>::BQ)
                                    : dkv_smem(D, Tiles<D>::BQ, Tiles<D>::BK);
   return -1;
@@ -1077,8 +1246,8 @@ long long smem_of(int pass, int dtype) {
 // three per tensor in the order of the tensor arguments; lse and delta are
 // contiguous f32 [B * H, Lq]. Launches on `stream`, returns a cudaError_t
 // (0 on success): cudaErrorInvalidValue for a shape, d or dtype outside
-// the above. bf16 forward and dk/dv run on the tensor cores, the rest on
-// the CUDA cores (see the top of this file).
+// the above. bf16 runs on the tensor cores, f32 on the CUDA cores (see the
+// top of this file).
 
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                             int B, int H, int Lq, int Lk, int d, const int64_t* strides,
@@ -1107,12 +1276,15 @@ extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RT_DQ(T, D) \
   launch_dq<T, D>(q, k, v, dout, lse, delta, dq, B, H, Lq, Lk, strides, sm_scale, causal, s)
+#define RT_DQ_MMA(D) \
+  launch_dq_mma<D>(q, k, v, dout, lse, delta, dq, B, H, Lq, Lk, strides, sm_scale, causal, s)
   if (dtype == 0 && d == 64) return RT_DQ(float, 64);
   if (dtype == 0 && d == 128) return RT_DQ(float, 128);
   if (dtype == 0 && d == 256) return RT_DQ(float, 256);
-  if (dtype == 1 && d == 64) return RT_DQ(__nv_bfloat16, 64);
-  if (dtype == 1 && d == 128) return RT_DQ(__nv_bfloat16, 128);
-  if (dtype == 1 && d == 256) return RT_DQ(__nv_bfloat16, 256);
+  if (dtype == 1 && d == 64) return RT_DQ_MMA(64);
+  if (dtype == 1 && d == 128) return RT_DQ_MMA(128);
+  if (dtype == 1 && d == 256) return RT_DQ_MMA(256);
+#undef RT_DQ_MMA
 #undef RT_DQ
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,16 +31,32 @@
 // 3.35 TB/s. The f32 partials of dw add 2 * blocks * d * 4 bytes, a few
 // per cent at that shape.
 //
-// The hazard and the design: the Pallas kernel adds every grid step's dw
-// into one (8, d) f32 block, correct only because a TPU grid runs in order.
-// GPU blocks run concurrently, so here every block owns one f32 partial
-// row of dw. A block takes rows b, b + gridDim.x, ... (one whole row at a
-// time, so dx of a row is one block's work, with the forward's 16-byte
-// loads); each thread adds g * xhat of the columns it touches into the
-// block's partial, kept in shared memory, and writes it out at the end. A
-// second small kernel sums the partials column by column in a fixed order,
-// with compensated sums. No atomics: dw is the same from run to run. Both row sums the backward
-// needs (x^2 and g*w*x) come from one pass and one block reduction.
+// The hazard: the Pallas kernel adds every grid step's dw into one (8, d)
+// f32 block, correct only because a TPU grid runs in order. GPU blocks run
+// concurrently, so here every block owns one f32 partial row of dw, and a
+// second small kernel (rmsnorm_dw_reduce_kernel) sums the partials column
+// by column in a fixed order, with compensated sums. No atomics: dw is the
+// same from run to run. A launch whose rows fit one block (a few rows) has
+// that block write dw itself and skips the second kernel: at 1 to 5 rows
+// the two launches, not the bytes, are the time.
+//
+// The design (rmsnorm_bwd_kernel): one pass over x and g. Where every row
+// is whole aligned 16-byte vectors and a thread holds at most kMaxVpt of
+// them (d up to 8192 in bf16 and 4096 in f32 at 256 threads), a row is
+// owned by a group of threads, a power of two: 16 threads at d = 128 in
+// bf16 (16 rows at a time in a 256-thread block), the whole block at d =
+// 2048, each thread one vector. A thread keeps its x, g and w vectors in
+// registers across the row's reduction, so x and g are read once from
+// device memory; both row sums (x^2 and g*w*x) come from that one read and
+// one reduction (shuffles within a warp; one barrier when a row spans
+// warps). A thread owns the same columns of every row, so its part of dw
+// stays in f32 registers and is written out once, at the end. The next
+// row's x and g are loaded before the current row's reduction, so a load
+// is in flight while the block waits at its barrier. Every other row (a
+// scalar tail, an unaligned row, d above that) takes the two-pass kernel
+// (rmsnorm_bwd_two_pass_kernel): a block walks its rows one at a time,
+// reads x, g and w, reduces, reads them again for dx and adds its dw into
+// shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +65,7 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxVpt = 4;  // 16-byte vectors of x and of g a thread holds (one pass)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -155,14 +172,158 @@ __device__ __forceinline__ float2 block_sum2(float a, float b) {
   return total2;
 }
 
-// dx for rows blockIdx.x, blockIdx.x + gridDim.x, ...; the block's f32 dw
-// partial (sum over its rows of g * xhat) goes to dw_part[blockIdx.x * d].
-// Dynamic shared memory: d floats.
-template <typename T>
+// One pass, for rows of whole 16-byte vectors, at most kMaxVpt of them a
+// thread. A group of tpr threads (a power of two that divides blockDim.x)
+// owns one row at a time; thread l of a group owns vectors l, l + tpr, ...
+// (below nvec) of every row it touches, so its w and its part of dw stay in
+// registers. The groups of a block take rows (step * gridDim.x + blockIdx.x)
+// * groups + group, step = 0, 1, ...; each thread loads the next row's x and
+// g before the current row's sums are reduced. A group's sums are reduced
+// by shuffles where it fits in a warp, else through one barrier (per-warp
+// sums, double-buffered by row). The block's f32 dw partial goes to
+// dw_part[blockIdx.x * d]; with several groups it is summed over them in a
+// fixed order through dynamic shared memory (groups * d floats). A launch
+// of one block writes dw itself (dw_one, rounded once) instead.
+template <typename T, int VPT>
 __global__ void rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                    const T* __restrict__ g, T* __restrict__ dx,
-                                   float* __restrict__ dw_part, int64_t rows, int64_t d,
-                                   int64_t x_stride, float eps) {
+                                   float* __restrict__ dw_part, T* __restrict__ dw_one,
+                                   int64_t rows, int64_t d, int64_t x_stride, float eps,
+                                   int tpr) {
+  constexpr int kVec = 16 / sizeof(T);
+  extern __shared__ __align__(16) float red[];
+  __shared__ float2 wsum[2][kMaxThreads / 32];
+  const int64_t nvec = d / kVec;
+  const int groups = blockDim.x / tpr;
+  const int gi = threadIdx.x / tpr, gl = threadIdx.x % tpr;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  bool own[VPT];
+  uint4 wv[VPT];
+  float dwp[VPT][kVec];
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    own[i] = gl + i * tpr < nvec;
+    wv[i] = own[i] ? reinterpret_cast<const uint4*>(w)[gl + i * tpr] : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) dwp[i][j] = 0.0f;
+  }
+  auto first_of = [&](int64_t step) { return (step * gridDim.x + blockIdx.x) * groups; };
+  auto load = [&](int64_t row, uint4 (&xv)[VPT], uint4 (&gv)[VPT]) {
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const bool ok = own[i] && row < rows;
+      xv[i] = ok ? reinterpret_cast<const uint4*>(x + row * x_stride)[gl + i * tpr]
+                 : make_uint4(0, 0, 0, 0);
+      gv[i] = ok ? reinterpret_cast<const uint4*>(g + row * d)[gl + i * tpr]
+                 : make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  uint4 xc[VPT], gc[VPT], xn[VPT], gn[VPT];
+  load(first_of(0) + gi, xc, gc);
+  for (int64_t step = 0; first_of(step) < rows; ++step) {
+    const int64_t row = first_of(step) + gi;
+    float ss = 0.0f, sgwx = 0.0f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const T* xv = reinterpret_cast<const T*>(&xc[i]);
+      const T* gv = reinterpret_cast<const T*>(&gc[i]);
+      const T* ww = reinterpret_cast<const T*>(&wv[i]);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float xf = to_f32(xv[j]);
+        ss += xf * xf;
+        sgwx += to_f32(gv[j]) * to_f32(ww[j]) * xf;
+      }
+    }
+    load(first_of(step + 1) + gi, xn, gn);  // in flight during the reduction
+    if (tpr <= 32) {
+      for (int off = tpr >> 1; off > 0; off >>= 1) {
+        ss += __shfl_xor_sync(0xffffffffu, ss, off);
+        sgwx += __shfl_xor_sync(0xffffffffu, sgwx, off);
+      }
+    } else {
+      float2* ws = wsum[step & 1];
+      ss = warp_sum(ss);
+      sgwx = warp_sum(sgwx);
+      if (lane == 0) ws[warp] = make_float2(ss, sgwx);
+      __syncthreads();
+      ss = sgwx = 0.0f;
+      for (int k = gi * (tpr >> 5); k < (gi + 1) * (tpr >> 5); ++k) {
+        ss += ws[k].x;
+        sgwx += ws[k].y;
+      }
+    }
+    const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
+    // mean(gw * xhat) = inv * mean(gw * x)
+    const float mean_gwx = inv * sgwx / static_cast<float>(d);
+    if (row < rows) {
+#pragma unroll
+      for (int i = 0; i < VPT; ++i) {
+        if (!own[i]) continue;
+        const T* xv = reinterpret_cast<const T*>(&xc[i]);
+        const T* gv = reinterpret_cast<const T*>(&gc[i]);
+        const T* ww = reinterpret_cast<const T*>(&wv[i]);
+        uint4 out;
+        T* ov = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          const float xhat = to_f32(xv[j]) * inv;
+          const float gf = to_f32(gv[j]);
+          const float gw = gf * to_f32(ww[j]);
+          ov[j] = from_f32<T>(inv * (gw - xhat * mean_gwx));
+          dwp[i][j] += gf * xhat;
+        }
+        reinterpret_cast<uint4*>(dx + row * d)[gl + i * tpr] = out;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      xc[i] = xn[i];
+      gc[i] = gn[i];
+    }
+  }
+
+  float* part = dw_part + static_cast<int64_t>(blockIdx.x) * d;
+  float* mine = groups == 1 ? part : red + static_cast<int64_t>(gi) * d;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    if (!own[i]) continue;
+    const int64_t c0 = static_cast<int64_t>(gl + i * tpr) * kVec;
+    if (groups == 1 && dw_one != nullptr) {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) dw_one[c0 + j] = from_f32<T>(dwp[i][j]);
+      continue;
+    }
+    float4* at = reinterpret_cast<float4*>(mine + c0);
+#pragma unroll
+    for (int j = 0; j < kVec; j += 4)
+      at[j / 4] = make_float4(dwp[i][j], dwp[i][j + 1], dwp[i][j + 2], dwp[i][j + 3]);
+  }
+  if (groups == 1) return;
+  __syncthreads();
+  for (int64_t c = threadIdx.x; c < d; c += blockDim.x) {
+    float sum = 0.0f;
+    for (int k = 0; k < groups; ++k) sum += red[k * d + c];
+    if (dw_one != nullptr)
+      dw_one[c] = from_f32<T>(sum);
+    else
+      part[c] = sum;
+  }
+}
+
+// Two passes, for every other row (a scalar tail, an unaligned row, or more
+// vectors than a thread holds): dx for rows blockIdx.x, blockIdx.x +
+// gridDim.x, ...; the block's f32 dw partial (sum over its rows of g * xhat)
+// goes to dw_part[blockIdx.x * d] (to dw_one, rounded, in a launch of one
+// block). Dynamic shared memory: d floats.
+template <typename T>
+__global__ void rmsnorm_bwd_two_pass_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                                            const T* __restrict__ g, T* __restrict__ dx,
+                                            float* __restrict__ dw_part, T* __restrict__ dw_one,
+                                            int64_t rows, int64_t d, int64_t x_stride,
+                                            float eps) {
   constexpr int kVec = 16 / sizeof(T);
   extern __shared__ float sdw[];
   for (int64_t i = threadIdx.x; i < d; i += blockDim.x) sdw[i] = 0.0f;
@@ -235,7 +396,12 @@ __global__ void rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict_
     __syncthreads();
   }
   float* part = dw_part + static_cast<int64_t>(blockIdx.x) * d;
-  for (int64_t i = threadIdx.x; i < d; i += blockDim.x) part[i] = sdw[i];
+  for (int64_t i = threadIdx.x; i < d; i += blockDim.x) {
+    if (dw_one != nullptr)
+      dw_one[i] = from_f32<T>(sdw[i]);
+    else
+      part[i] = sdw[i];
+  }
 }
 
 // dw[c] = sum over the nparts partial rows of column c, in a fixed order:
@@ -264,6 +430,73 @@ __global__ void rmsnorm_dw_reduce_kernel(const float* __restrict__ dw_part,
     for (int i = 0; i < 8; ++i) total += acc[i][threadIdx.x];
     dw[c] = from_f32<T>(total);
   }
+}
+
+// Launch a row kernel with `smem` bytes of dynamic shared memory. Dynamic
+// and static shared memory together above 48 KB need the kernel's opt-in
+// (the two-pass kernel at d = 12288 takes 48 KB of dynamic and a few
+// hundred bytes of static shared memory).
+template <typename Kernel, typename... Args>
+int launch_rows(Kernel kernel, int blocks, int threads, size_t smem, cudaStream_t s,
+                Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, threads, smem, s>>>(args...);
+  return 0;
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* w, const void* g, void* dx, float* dw_part, void* dw,
+               int64_t rows, int64_t d, int64_t x_stride, float eps, int threads, int blocks,
+               cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  const int64_t nvec = d / kVec;
+  int tpr = 1;
+  while (tpr < nvec && tpr < threads) tpr <<= 1;
+  const int64_t vpt = (nvec + tpr - 1) / tpr;
+  const size_t red = tpr < threads ? static_cast<size_t>(threads / tpr) * d * sizeof(float) : 0;
+  const bool one_pass =
+      d % kVec == 0 && (threads & (threads - 1)) == 0 && vpt <= kMaxVpt && red <= 48 * 1024 &&
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+        reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dx)) & 15) == 0 &&
+      (x_stride * static_cast<int64_t>(sizeof(T))) % 16 == 0;
+  // Blocks that get rows; a launch of one block writes dw itself and needs
+  // no reduction.
+  const int64_t per_block = one_pass ? threads / tpr : 1;
+  const int64_t wanted = (rows + per_block - 1) / per_block;
+  const int used = static_cast<int>(wanted < blocks ? wanted : blocks);
+  T* dw_one = used == 1 ? static_cast<T*>(dw) : nullptr;
+  int err = 0;
+  if (!one_pass) {
+    const size_t smem = static_cast<size_t>(d) * sizeof(float);
+    if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_rows(rmsnorm_bwd_two_pass_kernel<T>, used, threads, smem, s, xt, wt, gt, dxt,
+                      dw_part, dw_one, rows, d, x_stride, eps);
+  } else if (vpt == 1) {
+    err = launch_rows(rmsnorm_bwd_kernel<T, 1>, used, threads, red, s, xt, wt, gt, dxt, dw_part,
+                      dw_one, rows, d, x_stride, eps, tpr);
+  } else if (vpt == 2) {
+    err = launch_rows(rmsnorm_bwd_kernel<T, 2>, used, threads, red, s, xt, wt, gt, dxt, dw_part,
+                      dw_one, rows, d, x_stride, eps, tpr);
+  } else if (vpt == 3) {
+    err = launch_rows(rmsnorm_bwd_kernel<T, 3>, used, threads, red, s, xt, wt, gt, dxt, dw_part,
+                      dw_one, rows, d, x_stride, eps, tpr);
+  } else {
+    err = launch_rows(rmsnorm_bwd_kernel<T, 4>, used, threads, red, s, xt, wt, gt, dxt, dw_part,
+                      dw_one, rows, d, x_stride, eps, tpr);
+  }
+  if (err != 0) return err;
+  if (used > 1) {
+    const dim3 rgrid(static_cast<unsigned>((d + 31) / 32));
+    const dim3 rblock(32, 8);
+    rmsnorm_dw_reduce_kernel<T><<<rgrid, rblock, 0, s>>>(dw_part, static_cast<T*>(dw), used, d);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -295,8 +528,12 @@ extern "C" int rt_rmsnorm_fwd(const void* x, const void* w, void* y, int64_t row
 
 // Backward. x: rows with stride x_stride; g, dx: contiguous [rows, d];
 // dw_part: f32 scratch of blocks * d; dw: [d] in x's dtype. dtype as in
-// rt_rmsnorm_fwd. Launches the row kernel on `blocks` blocks and then the
-// reduction, both on `stream`; returns cudaGetLastError().
+// rt_rmsnorm_fwd. Launches the row kernel on at most `blocks` blocks (no
+// more than have rows to take) and then, unless that is one block, the
+// reduction, both on `stream`; returns cudaGetLastError(). The row kernel is
+// the one-pass kernel where every row is whole aligned 16-byte vectors, at
+// most kMaxVpt of them a thread, and `threads` is a power of two; the
+// two-pass kernel otherwise.
 extern "C" int rt_rmsnorm_bwd(const void* x, const void* w, const void* g, void* dx,
                               float* dw_part, void* dw, int64_t rows, int64_t d,
                               int64_t x_stride, float eps, int dtype, int threads,
@@ -305,27 +542,12 @@ extern "C" int rt_rmsnorm_bwd(const void* x, const void* w, const void* g, void*
     return static_cast<int>(cudaErrorInvalidValue);
   if (threads < 32 || threads > kMaxThreads || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 rgrid(static_cast<unsigned>((d + 31) / 32));
-  const dim3 rblock(32, 8);
-  if (dtype == 0) {
-    rmsnorm_bwd_kernel<float><<<blocks, threads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(g), static_cast<float*>(dx), dw_part, rows, d, x_stride,
-        eps);
-    rmsnorm_dw_reduce_kernel<float><<<rgrid, rblock, 0, s>>>(dw_part, static_cast<float*>(dw),
-                                                          blocks, d);
-  } else if (dtype == 1) {
-    rmsnorm_bwd_kernel<__nv_bfloat16><<<blocks, threads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dx), dw_part, rows,
-        d, x_stride, eps);
-    rmsnorm_dw_reduce_kernel<__nv_bfloat16><<<rgrid, rblock, 0, s>>>(
-        dw_part, static_cast<__nv_bfloat16*>(dw), blocks, d);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch_bwd<float>(x, w, g, dx, dw_part, dw, rows, d, x_stride, eps, threads, blocks,
+                             s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, w, g, dx, dw_part, dw, rows, d, x_stride, eps, threads,
+                                     blocks, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

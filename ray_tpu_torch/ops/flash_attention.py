@@ -5,9 +5,9 @@ Counterpart of ray_tpu/ops/flash_attention.py. In `csrc/flash_attention.cu`,
 `rt_flash_fwd` replaces the Pallas TPU kernel `_flash_fwd_kernel`,
 `rt_flash_bwd_dq` replaces `_flash_bwd_dq_kernel` and `rt_flash_bwd_dkv`
 replaces `_flash_bwd_dkv_kernel`. The C entry points pick their kernel by
-dtype: bf16 forward and dk/dv multiply on the tensor cores (`mma.sync`,
-p and ds rounded to bf16 before their products, as FlashAttention-2
-does); f32 inputs, and dq in both dtypes, run on the CUDA cores in f32.
+dtype: bf16 forward, dq and dk/dv multiply on the tensor cores
+(`mma.sync`, p and ds rounded to bf16 before their products, as
+FlashAttention-2 does); f32 inputs run on the CUDA cores in f32.
 `_flash_fwd_plain` and `_flash_bwd_plain` compute what those kernels
 compute (same masking, same lse), over whole score matrices;
 `flash_attention_plain` is `_flash_attention_xla`.

@@ -68,8 +68,12 @@ def _bwd_kernel():
     return fn
 
 
-# The backward keeps one f32 dw partial row per block in shared memory.
-_BWD_MAX_D = 12288  # 48 KB of floats: no opt-in attribute needed
+# The backward's two-pass kernel keeps one f32 dw partial row per block in
+# shared memory.
+_BWD_MAX_D = 12288  # 48 KB of floats
+# Threads per backward block, a power of two: the one-pass kernel gives a
+# row to a group of them (16 at d = 128 in bf16, all 256 at d = 2048).
+_BWD_THREADS = 256
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,7 +143,7 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     if rows == 0:
         return dx.reshape(x.shape), torch.zeros_like(w)
-    threads = _threads_for(d, x.element_size())
+    threads = _BWD_THREADS
     blocks = min(rows, _sm_count(x.device.index) * 1024 // threads)
     dw_part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     dw = torch.empty_like(w)

@@ -32,6 +32,8 @@ from ray_tpu_torch.ops.flash_attention import (_ARG_INT, _ARG_TAIL,
                                                _flash_bwd_dkv_plain,
                                                _flash_bwd_dq_plain,
                                                _flash_fwd_plain, _strides)
+from ray_tpu_torch.ops.rmsnorm import (_BWD_THREADS, _rmsnorm_bwd_plain,
+                                       _rmsnorm_plain, _threads_for)
 
 torch.set_num_threads(1)
 
@@ -44,7 +46,9 @@ _EMU_H = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -61,13 +65,16 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct Idx { unsigned x, y, z; };
-thread_local Idx threadIdx, blockIdx;
+thread_local Idx threadIdx, blockIdx, blockDim, gridDim;
 
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 struct uint4 { unsigned x, y, z, w; };
 struct uint2 { unsigned x, y; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
 
 struct __nv_bfloat16 { uint16_t x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
@@ -78,6 +85,7 @@ inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
   u += 0x7fffu + ((u >> 16) & 1u);
   return {static_cast<uint16_t>(u >> 16)};
 }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
 inline float __bfloat162float(__nv_bfloat16 b) {
   uint32_t u = static_cast<uint32_t>(b.x) << 16;
   float f;
@@ -116,6 +124,8 @@ struct Block {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<unsigned char> smem;
   std::vector<std::unique_ptr<Warp>> warps;
+  std::mutex mu;  // guards statics
+  std::map<std::pair<int, size_t>, std::vector<unsigned char>> statics;
 };
 thread_local Block* emu_block = nullptr;
 thread_local int emu_lane = 0, emu_warp = 0;
@@ -124,6 +134,15 @@ thread_local std::vector<std::vector<Copy>> emu_groups;  // committed, oldest fi
 thread_local std::vector<Copy> emu_open;
 
 inline unsigned char* emu_smem() { return emu_block->smem.data(); }
+// A static __shared__ variable (declared on source line `line`): one per
+// block, NaN bytes at first.
+template <typename T>
+T& emu_static(int line) {
+  std::lock_guard<std::mutex> lock(emu_block->mu);
+  auto& buf = emu_block->statics[{line, sizeof(T)}];
+  if (buf.empty()) buf.assign(sizeof(T), 0xff);
+  return *reinterpret_cast<T*>(buf.data());
+}
 inline Warp& emu_w() { return *emu_block->warps[emu_warp]; }
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_w().bar.arrive_and_wait(); }
@@ -226,7 +245,7 @@ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
 
 template <typename Kernel, typename... Args>
 void emu_launch(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, Args... args) {
-  const int nt = block.x;
+  const int nt = block.x * block.y * block.z;
   if (nt % 32 || nt > 1024 || smem > 232448) { emu_error = cudaErrorInvalidValue; return; }
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
@@ -238,8 +257,10 @@ void emu_launch(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t,
       for (int t = 0; t < nt; ++t)
         threads.emplace_back([&, t, bx, by] {
           emu_block = &blk;
-          threadIdx = {static_cast<unsigned>(t), 0, 0};
+          threadIdx = {t % block.x, t / block.x % block.y, t / (block.x * block.y)};
           blockIdx = {bx, by, 0};
+          blockDim = {block.x, block.y, block.z};
+          gridDim = {grid.x, grid.y, grid.z};
           emu_lane = t % 32;
           emu_warp = t / 32;
           emu_groups.clear();
@@ -261,12 +282,14 @@ _PTX_HELPERS = ("smem_u32", "cp_async16", "cp_async4", "cp_async_commit",
 def _emulation_source(cu: str) -> str:
     src = cu.replace("#include <cuda_bf16.h>\n#include <cuda_runtime.h>\n",
                      '#include "emu.h"\n')
-    src = src.replace("extern __shared__ __align__(128) unsigned char smem_mma[];",
-                      "unsigned char* smem_mma = emu_smem();")
-    src = src.replace("extern __shared__ float4 smem4[];",
-                      "float4* smem4 = reinterpret_cast<float4*>(emu_smem());")
-    src = re.sub(r"kernel<<<(\w+), ([^,]+), smem, s>>>\(",
-                 r"emu_launch(kernel, \1, dim3(\2), smem, s, ", src)
+    # Dynamic shared memory is the emulated block's buffer; a static
+    # __shared__ variable is one per emulated block.
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(emu_smem());", src)
+    src = re.sub(r"(?m)^(\s*)__shared__ (\w+) (\w+)((?:\[[^\]]+\])*);",
+                 r"\1auto& \3 = emu_static<\2\4>(__LINE__);", src)
+    src = re.sub(r"(\w+(?:<[^<>]*>)?)<<<([^,]+), ([^,]+), ([^,]+), s>>>\(",
+                 r"emu_launch(\1, dim3(\2), dim3(\3), \4, s, ", src)
     out, lines, i = [], src.split("\n"), 0
     while i < len(lines):
         m = re.match(r"__device__ __forceinline__ \w+ (\w+)\(", lines[i])
@@ -281,34 +304,54 @@ def _emulation_source(cu: str) -> str:
     return "\n".join(out)
 
 
+_I64, _VP = ctypes.c_int64, ctypes.c_void_p
+# Each emulated library and the argument types of its entry points.
+_ENTRY_POINTS = {
+    "flash_attention": {
+        name: [_VP] * n_ptrs + _ARG_INT + _ARG_TAIL
+        for name, n_ptrs in (("rt_flash_fwd", 5), ("rt_flash_bwd_dq", 7),
+                             ("rt_flash_bwd_dkv", 8))},
+    "rmsnorm": {
+        "rt_rmsnorm_fwd": [_VP] * 3 + [_I64] * 4 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, _VP],
+        "rt_rmsnorm_bwd": [_VP] * 6 + [_I64] * 3 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP]},
+}
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
+    """Every entry point of csrc/flash_attention.cu and csrc/rmsnorm.cu,
+    compiled (one g++ per source, at once) against the emulation."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++20 host compiler (g++)")
     d = tmp_path_factory.mktemp("cuda_emulation")
     (d / "emu.h").write_text(_EMU_H)
-    src = d / "flash_attention_emu.cpp"
-    src.write_text(_emulation_source(
-        (_build.CSRC / "flash_attention.cu").read_text()))
-    lib = d / "libflash_attention_emu.so"
-    # The kernels type-pun bf16 pairs through pointers, as nvcc allows.
-    res = subprocess.run([cxx, "-std=c++20", "-O2", "-fno-strict-aliasing",
-                          "-shared", "-fPIC", "-pthread", "-I", str(d), "-o",
-                          str(lib), str(src)],
-                         capture_output=True, text=True)
-    if res.returncode != 0 and "barrier" in res.stderr and "No such file" \
-            in res.stderr:
-        pytest.skip(f"{cxx} has no C++20 <barrier>")
-    assert res.returncode == 0, res.stderr[-4000:]
-    so = ctypes.CDLL(str(lib))
+    procs = {}
+    for name in _ENTRY_POINTS:
+        src = d / f"{name}_emu.cpp"
+        src.write_text(_emulation_source(
+            (_build.CSRC / f"{name}.cu").read_text()))
+        # The kernels type-pun bf16 pairs through pointers, as nvcc allows.
+        procs[name] = subprocess.Popen(
+            [cxx, "-std=c++20", "-O2", "-fno-strict-aliasing", "-shared",
+             "-fPIC", "-pthread", "-I", str(d), "-o",
+             str(d / f"lib{name}_emu.so"), str(src)],
+            stderr=subprocess.PIPE, text=True)
     fns = {}
-    for name, n_ptrs in (("rt_flash_fwd", 5), ("rt_flash_bwd_dq", 7),
-                         ("rt_flash_bwd_dkv", 8)):
-        fn = getattr(so, name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + _ARG_INT + _ARG_TAIL
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0 and "barrier" in err and "No such file" \
+                in err:
+            pytest.skip(f"{cxx} has no C++20 <barrier>")
+        assert proc.returncode == 0, err[-4000:]
+        so = ctypes.CDLL(str(d / f"lib{name}_emu.so"))
+        for fn_name, argtypes in _ENTRY_POINTS[name].items():
+            fn = getattr(so, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[fn_name] = fn
     return fns
 
 
@@ -375,3 +418,49 @@ def test_flash_kernels_emulated_match_plain(emulated, causal, lq, lk, d, h,
     for got, want in zip((dk, dv),
                          _flash_bwd_dkv_plain(*f, lse, delta, causal)):
         _assert_close(got, want, tdt, 2e-3)
+
+
+# (rows, d, row_pad, blocks, dtype): the RMSNorm kernels through
+# rt_rmsnorm_fwd / rt_rmsnorm_bwd with the wrapper's threads. One-pass
+# backward: 16-thread row groups that take two steps a block (d = 128),
+# a block per row with one barrier a row (2048), two vectors a thread with
+# some threads owning one (3072), four (4096 in f32), x read through a row
+# stride; two-pass backward: a scalar tail (100 in bf16) and an unaligned
+# row stride. The last three launch one block, which writes dw itself.
+@pytest.mark.parametrize("rows,d,pad,blocks,dtype", [
+    (37, 128, 0, 2, "bfloat16"),
+    (21, 2048, 8, 4, "bfloat16"),
+    (9, 3072, 0, 3, "bfloat16"),
+    (5, 4096, 0, 2, "float32"),
+    (6, 100, 0, 2, "bfloat16"),
+    (7, 256, 1, 3, "float32"),
+    (5, 128, 0, 3, "bfloat16"),
+    (1, 2048, 0, 1, "float32"),
+    (1, 100, 0, 1, "bfloat16"),
+])
+def test_rmsnorm_kernels_emulated_match_plain(emulated, rows, d, pad, blocks,
+                                              dtype):
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(rows * 11 + d)
+    x = (torch.randn((rows, d + pad), generator=gen) * 3).to(tdt)[:, :d]
+    w = (torch.randn(d, generator=gen) * 0.1 + 1).to(tdt)
+    g = torch.randn((rows, d), generator=gen).to(tdt)
+    eps = 1e-6
+    y = torch.empty((rows, d), dtype=tdt)
+    err = emulated["rt_rmsnorm_fwd"](
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, x.stride(0), d,
+        eps, _DTYPE_CODE[tdt], _threads_for(d, x.element_size()), None)
+    assert err == 0, f"rt_rmsnorm_fwd returned {err}"
+    _assert_close(y, _rmsnorm_plain(x.float(), w.float(), eps), tdt, 1e-5)
+
+    dx = torch.empty((rows, d), dtype=tdt)
+    dw = torch.empty(d, dtype=tdt)
+    dw_part = torch.empty((blocks, d))
+    err = emulated["rt_rmsnorm_bwd"](
+        x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dw_part.data_ptr(), dw.data_ptr(), rows, d, x.stride(0), eps,
+        _DTYPE_CODE[tdt], _BWD_THREADS, blocks, None)
+    assert err == 0, f"rt_rmsnorm_bwd returned {err}"
+    want = _rmsnorm_bwd_plain(x.float(), w.float(), g.float(), eps)
+    _assert_close(dx, want[0], tdt, 1e-4)
+    _assert_close(dw, want[1], tdt, 1e-4)

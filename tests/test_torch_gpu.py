@@ -16,10 +16,10 @@ f32 from the same bf16 inputs: relative L2 error at most 4e-3 (the
 outputs are rounded once to bf16, whose unit roundoff is 2^-9 = 2e-3) and
 no element further than 2^-6 of the largest reference magnitude (or,
 where the reference vanishes, as dq and dk of a single key do, no
-element above 1e-5). dk and dv are summed without atomics, so two calls
-on the same inputs give the same bits. The
-training step: loss within rtol 2e-4, each gradient leaf within
-rtol=atol=2e-3 and a relative L2 error of at most 1e-3.
+element above 1e-5). dq, dk, dv and the RMSNorm backward's dx and dw are
+summed without atomics, so two calls on the same inputs give the same
+bits. The training step: loss within rtol 2e-4, each gradient leaf
+within rtol=atol=2e-3 and a relative L2 error of at most 1e-3.
 """
 
 import dataclasses
@@ -118,9 +118,12 @@ def _assert_bf16_close(got, want):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [128, 2048, 4096])
+@pytest.mark.parametrize("d", [128, 2048, 4096, 100, 12288])
 @pytest.mark.parametrize("rows", [1, 5, 8192])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, rows, d, dtype):
+    """d = 128, 2048 and 4096 take the one-pass kernel; d = 100 (a scalar
+    tail) and 12288 (the widest supported, 48 KB of shared memory) the
+    two-pass one."""
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda_device).manual_seed(rows + d)
     x = (torch.randn((rows, d), generator=gen, device=cuda_device) * 3).to(tdt)
@@ -201,9 +204,10 @@ def test_flash_kernels_match_plain(cuda_device, causal, lq, lk, d, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [64, 128, 256])
-def test_flash_dkv_kernel_is_deterministic(cuda_device, d, dtype):
-    """dk and dv are summed without atomics: two calls on the same inputs
-    give the same bits."""
+@pytest.mark.parametrize("backward", ["dq", "dkv"])
+def test_flash_bwd_kernel_is_deterministic(cuda_device, backward, d, dtype):
+    """dq, dk and dv are summed without atomics: two calls of either
+    backward kernel on the same inputs give the same bits."""
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda_device).manual_seed(d)
 
@@ -214,8 +218,28 @@ def test_flash_dkv_kernel_is_deterministic(cuda_device, d, dtype):
     q, k, v, do = rand(300), rand(300), rand(300), rand(300)
     o, lse = flash_fwd_cuda(q, k, v, True)
     delta = _delta(o, do)
-    first = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
-    second = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
+    kernel = {"dq": flash_bwd_dq_cuda, "dkv": flash_bwd_dkv_cuda}[backward]
+    first = kernel(q, k, v, do, lse, delta, True)
+    second = kernel(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    if backward == "dq":
+        first, second = (first,), (second,)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_rmsnorm_bwd_kernel_is_deterministic(cuda_device):
+    """At the training step's 8192 x 2048 bf16, dx and dw (partials summed
+    in a fixed order, no atomics) repeat bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8192)
+    x = (torch.randn((8192, 2048), generator=gen, device=cuda_device)
+         * 3).to(torch.bfloat16)
+    w = (torch.randn(2048, generator=gen, device=cuda_device) * 0.1
+         + 1).to(torch.bfloat16)
+    g = torch.randn((8192, 2048), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    first = rmsnorm_bwd_cuda(x, w, g)
+    second = rmsnorm_bwd_cuda(x, w, g)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)

@@ -48,6 +48,7 @@ from ray_tpu_torch.ops import (apply_rope, flash_attention, rmsnorm,
 from ray_tpu_torch.ops.cross_entropy import chunked_lm_head_ce
 from ray_tpu_torch.ops.flash_attention import (_delta,
                                                _flash_bwd_dkv_plain,
+                                               _flash_bwd_dq_plain,
                                                _flash_bwd_plain,
                                                _flash_fwd_plain,
                                                _FlashAttention, _valid,
@@ -364,6 +365,22 @@ def _tensor_core_dkv(q, k, v, do, lse, delta, causal):
     return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
+def _tensor_core_dq(q, k, v, do, lse, delta, causal):
+    """The bf16 tensor-core dq's arithmetic, on the CPU: scores scaled by
+    sm_scale * log2(e) in f32, p = exp2(s - lse * log2(e)) and ds = p (dp -
+    delta) in f32, ds rounded to bf16 before ds k, f32 sums, dq scaled by
+    sm_scale and rounded once."""
+    lq, lk, d = q.shape[1], k.shape[1], q.shape[-1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (d ** -0.5 * _LOG2E)
+    s = s.masked_fill(~_valid(lq, lk, causal, "cpu"), -1e30)
+    p = torch.exp2(s - lse[..., None] * _LOG2E)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), kf) * d ** -0.5
+    return dq.to(torch.bfloat16)
+
+
 # chip_smoke.py's FLASH_CASES up to L = 129, and the training step's
 # sequence at b = 1, h = 2: (causal, lq, lk, d, b, h).
 @pytest.mark.parametrize("causal,lq,lk,d,b,h", [
@@ -373,10 +390,10 @@ def _tensor_core_dkv(q, k, v, do, lse, delta, causal):
     (True, 1024, 1024, 128, 1, 2),
 ])
 def test_tensor_core_rounding_meets_bf16_tolerance(causal, lq, lk, d, b, h):
-    """The bf16 forward and dk/dv kernels round p, p^T and ds^T to bf16
-    before their products (they feed the tensor cores from registers). Their
-    arithmetic, emulated here on the CPU, stays within the bf16 tolerance
-    of the plain versions in f32 on the same bf16 inputs."""
+    """The bf16 forward, dq and dk/dv kernels round p, ds, p^T and ds^T to
+    bf16 before their products (they feed the tensor cores from registers).
+    Their arithmetic, emulated here on the CPU, stays within the bf16
+    tolerance of the plain versions in f32 on the same bf16 inputs."""
     rng = np.random.default_rng(lq * 7 + lk + d)
 
     def rand(n):
@@ -390,6 +407,8 @@ def test_tensor_core_rounding_meets_bf16_tolerance(causal, lq, lk, d, b, h):
     _assert_bf16_close(o, o_ref)
     torch.testing.assert_close(lse, lse_ref, rtol=2e-4, atol=2e-4)
     delta = _delta(o, do)
+    dq = _tensor_core_dq(q, k, v, do, lse, delta, causal)
+    _assert_bf16_close(dq, _flash_bwd_dq_plain(*f, lse, delta, causal))
     dk, dv = _tensor_core_dkv(q, k, v, do, lse, delta, causal)
     dk_ref, dv_ref = _flash_bwd_dkv_plain(*f, lse, delta, causal)
     _assert_bf16_close(dk, dk_ref)
