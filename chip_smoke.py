@@ -46,6 +46,22 @@ prints no result line:
            llama2-1b at full width, 2 layers, f32, batch 2 x seq 256: the
            loss and every gradient on the card against the same step on
            the CPU, and five AdamW steps on one batch lower its loss.
+  runtime  the runtime core: the driver frees the card, ray_tpu_torch.init()
+           detects the GPU (one, with its type label); tasks, a 256 MB
+           put/get (zero-copy, bit-equal), an actor and a TaskError; the
+           no-op task and actor-call round trips (median of 200) and the
+           put/get rate. A num_gpus=1 actor builds LLMReplica in its worker
+           (llama3-8b, full width and depth, bf16, seed 0, the slice
+           phase's engine) and serves the slice phase's 10 requests,
+           streamed through actor method calls: each returns its 32
+           tokens, the worker's rmsnorm kernel runs 2 * n_layers + 1
+           times per engine pass, the worker loads no JAX or ray_tpu, and
+           TTFT and tokens/s as the driver sees them stand beside the
+           slice phase's in-process figures. An actor serving llama3-8b
+           at full width, 2 layers, f32 returns generate()'s greedy
+           tokens on the same weights; while it lives the GPU is held (a
+           num_gpus=1 task stays pending) and after kill() the task runs.
+           After shutdown() no runtime process is left.
 
 Then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -188,8 +204,10 @@ def phase_build():
 
     t0 = time.perf_counter()
     built = _build.build_all()
+    store = _build.build_native("object_store")  # the runtime's g++ library
     secs = time.perf_counter() - t0
     emit({"phase": "build", "seconds": secs, "built": built,
+          "object_store_library": store.name,
           "kernels": _build.kernel_names(), "flash_kernels": kernel_report()})
 
 
@@ -352,7 +370,7 @@ def phase_slice():
     check(kv["prefix_hits"] >= 1, "the shared prefix never hit the cache")
     del params, rep, eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, rec
 
 
 def phase_step():
@@ -953,6 +971,457 @@ def phase_train_parity():
     torch.cuda.empty_cache()
 
 
+# -- the runtime core: a GPU actor serves llama3-8b -------------------------
+# The actor classes below live in __main__, so the runtime ships them to
+# the worker by value (cloudpickle); each method imports what it needs.
+RUNTIME_STORE_PUT_BYTES = 256 * 1000 * 1000
+RUNTIME_ROUND_TRIPS = 200
+
+
+class _LLMServer:
+    """Holds a model's weights on the card inside a worker; `start` builds
+    a fresh LLMReplica over them (with the kernel's count at 0) and
+    `finish` shuts it down and reports."""
+
+    def __init__(self, cfg_name, dtype, n_layers, seed):
+        import dataclasses
+        import time
+
+        import torch
+
+        from ray_tpu_torch.models import configs, init_params
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = getattr(configs, cfg_name)
+        self.cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype),
+                                       n_layers=n_layers or cfg.n_layers)
+        t0 = time.perf_counter()
+        self.params = init_params(self.cfg, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        self.init_params_s = time.perf_counter() - t0
+        self.rep = None
+
+    def info(self):
+        import os
+        import sys
+
+        import torch
+
+        return {"pid": os.getpid(), "device": torch.cuda.get_device_name(),
+                "torch_threads": torch.get_num_threads(),
+                "n_layers": self.cfg.n_layers,
+                "checksum": _param_checksum(self.params),
+                "init_params_s": self.init_params_s,
+                "jax_or_ray_tpu_modules": sorted(
+                    m for m in sys.modules if m in ("jax", "ray_tpu")
+                    or m.startswith(("jax.", "ray_tpu.")))}
+
+    def start(self, engine_kw):
+        import time
+
+        from ray_tpu_torch.ops.rmsnorm import rmsnorm_cuda
+        from ray_tpu_torch.serve.llm import LLMReplica
+
+        t0 = time.perf_counter()
+        self.rep = LLMReplica(lambda: (self.params, self.cfg), **engine_kw)
+        rmsnorm_cuda.launches = 0
+        return time.perf_counter() - t0
+
+    def stream(self, prompt, max_new_tokens, sampling):
+        yield from self.rep.stream(prompt, max_new_tokens, **sampling)
+
+    def generate(self, prompt, max_new_tokens, sampling):
+        return self.rep(prompt, max_new_tokens, **sampling)
+
+    def finish(self):
+        import torch
+
+        from ray_tpu_torch.ops.rmsnorm import rmsnorm_cuda
+
+        self.rep.shutdown()  # joins the engine thread: counts are final
+        torch.cuda.synchronize()
+        st = self.rep.stats()
+        return {"rmsnorm_launches": rmsnorm_cuda.launches,
+                "forward_passes": st["forward_passes"],
+                "engine_ttft_p50_s": st["latency"]["ttft"]["p50"],
+                "engine_ttft_p99_s": st["latency"]["ttft"]["p99"],
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _param_checksum(params) -> list:
+    """Per-leaf float64 sums: equal weights give equal sums."""
+    leaves = [v for k, v in sorted(params.items()) if k != "layers"]
+    leaves += [v for _, v in sorted(params["layers"].items())]
+    return [float(t.double().sum()) for t in leaves]
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def _runtime_procs() -> list:
+    """Processes of the port's runtime, as (pid, parent pid, command line):
+    the zygote, the workers forked from it (which keep its command line)
+    and workers exec'd as worker_main. This process is left out."""
+    import os
+
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                args = f.read().decode(errors="replace").split("\0")
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(") ", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        if args[1:2] == ["-m"] and args[2].startswith("ray_tpu_torch._private."):
+            out.append((int(pid), ppid, " ".join(a for a in args if a)))
+    return out
+
+
+def _runtime_workers() -> list:
+    """The runtime's processes other than the zygote this process started:
+    after shutdown() none may be left."""
+    import os
+
+    return [p for p in _runtime_procs()
+            if not (p[1] == os.getpid() and "_private.zygote" in p[2])]
+
+
+def _runtime_sanity(rt) -> dict:
+    from ray_tpu_torch.exceptions import TaskError
+
+    @rt.remote
+    def square(x):
+        return x * x
+
+    @rt.remote
+    def noop():
+        return None
+
+    @rt.remote
+    def fail():
+        raise ValueError("raised in a task")
+
+    @rt.remote
+    class Counter:
+        def __init__(self):
+            self.n = 0
+
+        def add(self, k):
+            self.n += k
+            return self.n
+
+        def noop(self):
+            return None
+
+    check(rt.get([square.remote(i) for i in range(16)]) ==
+          [i * i for i in range(16)], "tasks returned wrong values")
+    rng = np.random.default_rng(SEED)
+    arr = rng.integers(0, 255, size=RUNTIME_STORE_PUT_BYTES, dtype=np.uint8)
+    # Three rounds: the first writes store pages never touched before
+    # (page faults), the later ones reuse them once the free has landed.
+    put_s, get_s, zero_copy, equal = [], [], True, True
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ref = rt.put(arr)
+        put_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        out = rt.get(ref)
+        get_s.append(time.perf_counter() - t0)
+        zero_copy = zero_copy and not out.flags.owndata
+        equal = equal and bool(np.array_equal(out, arr))
+        del out, ref
+        time.sleep(0.5)
+    c = Counter.remote()
+    counts = rt.get([c.add.remote(k) for k in range(1, 6)])
+    try:
+        rt.get(fail.remote())
+        raised = None
+    except TaskError as e:
+        raised = e.cause_cls_name
+    rt.get([noop.remote(), c.noop.remote()])
+
+    def med_us(fn):
+        ts = []
+        for _ in range(RUNTIME_ROUND_TRIPS):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return _pct(ts, 0.5) * 1e6
+
+    task_us = med_us(lambda: rt.get(noop.remote()))
+    actor_us = med_us(lambda: rt.get(c.noop.remote()))
+    rt.kill(c)
+    rec = {"put_bytes": RUNTIME_STORE_PUT_BYTES, "put_s": put_s,
+           "get_s": get_s,
+           "put_GB_per_s": [arr.nbytes / t / 1e9 for t in put_s],
+           "get_GB_per_s": [arr.nbytes / t / 1e9 for t in get_s],
+           "get_zero_copy": zero_copy, "put_get_bit_equal": equal,
+           "actor_counts": counts, "task_error_cause": raised,
+           "noop_task_round_trip_us_p50": task_us,
+           "actor_call_round_trip_us_p50": actor_us,
+           "round_trips": RUNTIME_ROUND_TRIPS}
+    check(zero_copy and equal, "put/get of 256 MB was not zero-copy and "
+          "bit-equal")
+    check(counts == [1, 3, 6, 10, 15], f"actor state went wrong: {counts}")
+    check(raised == "ValueError", f"get() raised {raised}, not a TaskError "
+          f"caused by ValueError")
+    return rec
+
+
+def _serve_round(rt, srv, engine_kw, prompts, shared_a, shared_b,
+                 new_tokens, sampling, streamed) -> dict:
+    """One pass of the slice phase's 10-request mix through actor method
+    calls, each request from its own driver thread; shared_b goes in once
+    shared_a's first token is back (so its prefix is published). Streamed:
+    every request streams its tokens (one object a token) and TTFT is what
+    the driver sees. Otherwise only shared_a streams and the rest are
+    unary calls (the result at the end), and TTFT is the engine's."""
+    import threading
+
+    sampled = {1, 5}
+    results, errors = {}, []
+    a_first = threading.Event()
+
+    def run(key, prompt, samp):
+        try:
+            t_sub = time.perf_counter()
+            if not streamed and key != "shared_a":
+                toks = rt.get(srv.generate.remote(prompt, new_tokens, samp),
+                              timeout=900)
+                results[key] = (toks, None)
+                return
+            gen = srv.stream.options(num_returns="dynamic").remote(
+                prompt, new_tokens, samp)
+            toks, ttft = [], None
+            for item in gen:
+                toks.append(rt.get(item, timeout=600))
+                if ttft is None:
+                    ttft = time.perf_counter() - t_sub
+                    if key == "shared_a":
+                        a_first.set()
+            results[key] = (toks, ttft)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(f"{key}: {type(e).__name__}: {e}")
+        finally:
+            a_first.set()  # set already, or shared_a failed
+
+    build_s = rt.get(srv.start.remote(engine_kw), timeout=300)
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(
+        i, p, sampling if i in sampled else {})) for i, p in enumerate(prompts)]
+    threads.append(threading.Thread(target=run, args=("shared_a", shared_a, {})))
+    for t in threads:
+        t.start()
+    a_first.wait(900)
+    tb = threading.Thread(target=run, args=("shared_b", shared_b, sampling))
+    tb.start()
+    for t in threads + [tb]:
+        t.join(900)
+    window_s = time.perf_counter() - t_start
+    fin = rt.get(srv.finish.remote(), timeout=300)
+    check(not errors, f"requests through the actor failed: {errors}")
+    keys = [*range(len(prompts)), "shared_a", "shared_b"]
+    outs = [results[k][0] for k in keys]
+    tokens_out = sum(len(o) for o in outs)
+    rec = {"streamed": "all" if streamed else "shared_a only",
+           "worker_engine_build_s": build_s, "requests": len(outs),
+           "finished": sum(len(o) == new_tokens for o in outs),
+           "tokens_out": tokens_out, "window_s": window_s,
+           "output_tok_per_s": tokens_out / window_s, **fin,
+           "rmsnorm_per_pass": fin["rmsnorm_launches"] /
+           max(1, fin["forward_passes"])}
+    if streamed:
+        ttfts = [results[k][1] for k in keys]
+        rec["ttft_p50_s"] = _pct(ttfts, 0.5)
+        rec["ttft_p99_s"] = _pct(ttfts, 0.99)
+    rec["_outs"] = outs
+    return rec
+
+
+def _runtime_serve(rt, slice_rec, device_name) -> dict:
+    """The slice phase's 10-request mix, submitted through actor method
+    calls to a num_gpus=1 actor serving llama3-8b at full width and depth;
+    TTFT and tokens/s as the driver sees them through the runtime. The
+    streamed round is the main path; the second round, unary calls, tells
+    the per-token object path's cost from the worker's own."""
+    from ray_tpu_torch.models import configs
+
+    cfg = configs.llama3_8b
+    new_tokens = 32
+    sampling = {"temperature": 0.8, "top_k": 40, "top_p": 0.95}
+    engine_kw = {"num_slots": 8, "max_len": 2048, "prefill_chunk": 64,
+                 "kv_mode": "paged", "page_size": 16}
+    server = rt.remote(num_gpus=1, max_concurrency=16)(_LLMServer)
+    t0 = time.perf_counter()
+    srv = server.remote("llama3_8b", "bfloat16", 0, SEED)
+    info = rt.get(srv.info.remote(), timeout=900)
+    actor_ready_s = time.perf_counter() - t0
+    check(rt.available_resources().get("GPU", 0.0) == 0.0,
+          "the GPU actor does not hold the GPU")
+    rng = np.random.default_rng(SEED)
+    prompts, shared_a, shared_b = _shared_prompts(rng, cfg.vocab_size)
+    rounds = {}
+    for name, streamed in (("streamed", True), ("unary", False)):
+        rounds[name] = _serve_round(rt, srv, engine_kw, prompts, shared_a,
+                                    shared_b, new_tokens, sampling, streamed)
+    per_pass = 2 * cfg.n_layers + 1
+    rec = {"model": "llama3-8b", "dtype": "bfloat16",
+           "n_layers": info["n_layers"], "engine": engine_kw,
+           "worker_pid": info["pid"], "worker_device": info["device"],
+           "worker_jax_or_ray_tpu_modules": info["jax_or_ray_tpu_modules"],
+           "actor_ready_s": actor_ready_s,
+           "worker_init_params_s": info["init_params_s"],
+           "worker_torch_threads": info["torch_threads"],
+           "in_process_slice": {k: slice_rec[k] for k in (
+               "output_tok_per_s", "ttft_p50_s", "ttft_p99_s", "window_s",
+               "forward_passes")},
+           **{name: {k: v for k, v in r.items() if k != "_outs"}
+              for name, r in rounds.items()}}
+    check(info["n_layers"] == cfg.n_layers, "the actor did not serve full depth")
+    for name, r in rounds.items():
+        check(r["finished"] == 10, f"{name}: only {r['finished']}/10 "
+              f"requests through the actor returned {new_tokens} tokens")
+        check(all(0 <= t < cfg.vocab_size for o in r["_outs"] for t in o),
+              f"{name}: a token id through the actor is out of range")
+        check(r["forward_passes"] > 0 and r["rmsnorm_launches"] ==
+              per_pass * r["forward_passes"],
+              f"{name}: the worker's rmsnorm ran {r['rmsnorm_launches']} "
+              f"times in {r['forward_passes']} passes, not {per_pass} a pass")
+    check(info["device"] == device_name,
+          f"the actor ran on {info['device']}, not {device_name}")
+    check(info["jax_or_ray_tpu_modules"] == [],
+          f"the worker loaded {info['jax_or_ray_tpu_modules']}")
+    rt.kill(srv)
+    return rec
+
+
+def _runtime_parity_and_resource(rt) -> dict:
+    """An actor serves llama3-8b at full width, 2 layers, f32, greedy: its
+    tokens equal generate() in the driver on the same weights. While it
+    lives it holds the GPU: a num_gpus=1 task stays pending until the
+    actor is killed, and the GPU is free again after."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import configs, init_params
+    from ray_tpu_torch.models.generate import generate
+
+    deadline = time.monotonic() + 120
+    while rt.available_resources().get("GPU", 0.0) != 1.0:
+        check(time.monotonic() < deadline, "the serving actor's GPU was "
+              "never released")
+        time.sleep(0.1)
+    seed, new = SEED + 4, 8
+    engine_kw = {"num_slots": 4, "max_len": 256, "prefill_chunk": 64,
+                 "kv_mode": "paged", "page_size": 16}
+    server = rt.remote(num_gpus=1, max_concurrency=4)(_LLMServer)
+    srv = server.remote("llama3_8b", "float32", 2, seed)
+    info = rt.get(srv.info.remote(), timeout=600)
+    rt.get(srv.start.remote(engine_kw), timeout=300)
+    cfg = dataclasses.replace(configs.llama3_8b, n_layers=2,
+                              dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (9, 130)]
+    outs = rt.get([srv.generate.remote(p, new, {}) for p in prompts],
+                  timeout=600)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = init_params(cfg, seed=seed, device="cuda")
+    same_weights = _param_checksum(params) == info["checksum"]
+    refs = [generate(params, [p], cfg, max_new_tokens=new)[0].tolist()
+            for p in prompts]
+    del params
+    torch.cuda.empty_cache()
+
+    @rt.remote(num_gpus=1)
+    def gpu_task():
+        import torch
+
+        return torch.cuda.get_device_name()
+
+    held = rt.available_resources().get("GPU", 0.0)
+    pending_ref = gpu_task.remote()
+    ready, _ = rt.wait([pending_ref], timeout=2)
+    stayed_pending = ready == []
+    rt.kill(srv)
+    ran_on = rt.get(pending_ref, timeout=600)
+    deadline = time.monotonic() + 120
+    while rt.available_resources().get("GPU", 0.0) != 1.0:
+        check(time.monotonic() < deadline, "the GPU was never released")
+        time.sleep(0.1)
+    rec = {"parity_model": "llama3-8b, 2 layers", "parity_dtype": "float32",
+           "parity_prompt_lengths": [len(p) for p in prompts],
+           "parity_same_weights": same_weights,
+           "parity_actor_equals_generate": outs == refs,
+           "gpu_available_while_held": held,
+           "gpu_task_pending_while_held": stayed_pending,
+           "gpu_task_ran_after_kill_on": ran_on,
+           "gpu_available_after_kill": rt.available_resources().get("GPU")}
+    check(same_weights, "the actor's weights differ from the driver's")
+    check(outs == refs, f"the actor's tokens {outs} != generate()'s {refs}")
+    check(held == 0.0, f"{held} GPU available while the actor holds it")
+    check(stayed_pending, "a num_gpus=1 task ran while the actor held the GPU")
+    return rec
+
+
+def phase_runtime(slice_rec, device_name):
+    import gc
+
+    import torch
+
+    import ray_tpu_torch as rt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4)
+    init_s = time.perf_counter() - t0
+    try:
+        res = rt.cluster_resources()
+        labels = sorted(k for k in res if k.startswith("GPU-"))
+        rec = {"phase": "runtime", "driver_memory_reserved": reserved,
+               "init_s": init_s, "cluster_resources": res,
+               "gpu_type_labels": labels}
+        check(res.get("GPU") == 1.0, f"detected GPUs: {res.get('GPU')}")
+        check(len(labels) == 1, f"GPU type labels: {labels}")
+        rec["sanity"] = _runtime_sanity(rt)
+        rec["serve"] = _runtime_serve(rt, slice_rec, device_name)
+        rec.update(_runtime_parity_and_resource(rt))
+        live = _runtime_workers()
+        rec["workers_before_shutdown"] = len(live)
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while _runtime_workers() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _runtime_workers()
+    # The zygote serves every runtime this process starts and stops at
+    # exit; stop it now so the phase leaves no process behind.
+    from ray_tpu_torch._private import zygote_client
+
+    if zygote_client._shared is not None:
+        zygote_client._shared.stop()
+    deadline = time.monotonic() + 30
+    while _runtime_procs() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    rec["workers_after_shutdown"] = left
+    rec["runtime_procs_after_zygote_stop"] = _runtime_procs()
+    emit(rec)
+    check(live, "no worker process was found while the runtime ran")
+    check(not left, f"workers outlived shutdown(): {left}")
+    check(not rec["runtime_procs_after_zygote_stop"],
+          f"runtime processes outlived the zygote's stop: "
+          f"{rec['runtime_procs_after_zygote_stop']}")
+    return rec["serve"]["streamed"]["rmsnorm_launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -971,21 +1440,22 @@ def main() -> int:
     torch.cuda.set_device(0)
     seconds = {}
 
-    def run(phase):
+    def run(phase, *args):
         t0 = time.perf_counter()
-        out = phase()
+        out = phase(*args)
         seconds[phase.__name__[len("phase_"):]] = time.perf_counter() - t0
         return out
 
     name, smi = run(phase_device)
     run(phase_build)
     max_abs, timed = run(phase_kernels)
-    launches = run(phase_slice)
+    launches, slice_rec = run(phase_slice)
     run(phase_step)
     run(phase_parity)
     train_err, train_timed = run(phase_train_kernels)
     train = run(phase_train)
     run(phase_train_parity)
+    runtime_launches = run(phase_runtime, slice_rec, name)
     emit({"phase": "timing", "seconds": seconds})
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "ray_tpu") or m.startswith(("jax.",
@@ -997,9 +1467,11 @@ def main() -> int:
         "name": "rmsnorm_fwd", "route": "cuda",
         "source": "ray_tpu_torch/csrc/rmsnorm.cu",
         "replaces": "ray_tpu/ops/rmsnorm.py:49",
-        "launches": launches + train_launches["rmsnorm_fwd"],
+        "launches": (launches + train_launches["rmsnorm_fwd"]
+                     + runtime_launches),
         "launches_by_path": {"serve": launches,
-                             "train": train_launches["rmsnorm_fwd"]},
+                             "train": train_launches["rmsnorm_fwd"],
+                             "runtime_actor": runtime_launches},
         "max_abs_err": max_abs,
         "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],

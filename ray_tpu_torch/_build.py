@@ -9,6 +9,10 @@ source rebuilds and an unchanged one is reused. `build_all()` starts one
 `-Xptxas -v`; its log is kept beside the library, and `ptxas_report()`
 reads each kernel's registers, static shared memory and spills from it.
 
+The runtime's host library, `native/object_store.cc` (the shared-memory
+object store), is built the same way with `g++` by `build_native()`, on
+every host, into the same folder.
+
 Nothing here runs at import: the CPU tests import every module, and this
 host may have no `nvcc` at all.
 """
@@ -27,9 +31,15 @@ from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
+NATIVE = _PKG / "native"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# ray_tpu/native/Makefile's flags; -lrt: shm_open/shm_unlink live in
+# librt on pre-2.34 glibc (no-op after).
+GXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-Wall", "-shared"]
+GXX_LIBS = ["-lpthread", "-lrt"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -74,6 +84,39 @@ def _finish(name: str, proc, tmp: Path, out: Path, cmd: List[str]) -> None:
             f"{' '.join(cmd)}\n{log}")
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
+
+
+def _native_target(name: str) -> Path:
+    h = hashlib.sha256((NATIVE / f"{name}.cc").read_bytes())
+    h.update(" ".join(GXX_FLAGS + GXX_LIBS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_native(name: str) -> Path:
+    """The path of `native/<name>.cc` built as a shared library, compiling
+    it with g++ if it is not built yet. Many processes may build at once:
+    each writes its own temp file and renames it into place."""
+    out = _native_target(name)
+    if out.exists():
+        return out
+    with _lock:
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(NATIVE / f"{name}.cc"),
+               *GXX_LIBS]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except FileNotFoundError as e:
+            raise RuntimeError(f"cannot build {name!r}: g++ not found") from e
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"g++ failed building {name!r} (exit {proc.returncode}): "
+                f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out
 
 
 def kernel_names() -> List[str]:

@@ -1,6 +1,8 @@
 """Card-only tests of the PyTorch port: the CUDA kernels against their
 plain versions, one training step through the kernels against the same
-step on the CPU, and the engine on the card. Each test skips without a
+step on the CPU, the engine on the card, and the runtime core's GPU
+resource (detection, and a num_gpus=1 actor that launches the RMSNorm
+kernel in its own worker process). Each test skips without a
 CUDA device. This file imports no JAX, so on a machine with a card and
 without JAX it runs on its own:
 
@@ -23,6 +25,7 @@ within rtol=atol=2e-3 and a relative L2 error of at most 1e-3.
 """
 
 import dataclasses
+import os
 
 import pytest
 import torch
@@ -322,3 +325,73 @@ def test_engine_on_card_equals_generate(cuda_device, engines, name):
         engines.append(eng)
         outs = [eng.submit(p, 6).result(120) for p in prompts]
         assert outs == refs, mode
+
+
+def test_gpu_detection_counts_the_cards(cuda_device, monkeypatch):
+    """nvidia-smi (or the driver's /proc entries) finds the cards that
+    torch sees, and the type label names the card."""
+    from ray_tpu_torch._private.accelerators.gpu import (GPUAcceleratorManager,
+                                                         gpu_type_label)
+    from ray_tpu_torch._private.node import resolve_resources
+
+    monkeypatch.delenv("RT_NUM_GPUS", raising=False)
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    n = torch.cuda.device_count()
+    assert GPUAcceleratorManager.get_current_node_num_accelerators() == n
+    label = gpu_type_label(torch.cuda.get_device_name(0))
+    assert label is not None and label.startswith("GPU-")
+    assert GPUAcceleratorManager.get_current_node_accelerator_type() == label
+    res = resolve_resources(num_cpus=1)
+    assert res["GPU"] == float(n) and res[label] == 1.0
+
+
+@pytest.mark.parametrize("zygote", ["1", "0"], ids=["zygote", "popen"])
+def test_gpu_actor_launches_rmsnorm_kernel_in_its_worker(cuda_device,
+                                                         monkeypatch, zygote):
+    """A num_gpus=1 actor holds the detected card, runs the hand-written
+    RMSNorm kernel in its own process and matches the plain version; with
+    workers forked from the zygote and exec'd directly alike."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import config
+
+    monkeypatch.delenv("RT_NUM_GPUS", raising=False)
+    monkeypatch.setenv("RT_ZYGOTE_ENABLED", zygote)
+    config._config = None
+    rt.init(num_cpus=2)
+    try:
+        assert rt.cluster_resources()["GPU"] == float(torch.cuda.device_count())
+
+        @rt.remote(num_gpus=1)
+        class Kernel:
+            def run(self, rows, d, dtype):
+                import os
+
+                import torch
+
+                from ray_tpu_torch.ops.rmsnorm import _rmsnorm_plain, rmsnorm_cuda
+
+                tdt = getattr(torch, dtype)
+                gen = torch.Generator(device="cuda").manual_seed(rows + d)
+                x = (torch.randn((rows, d), generator=gen, device="cuda") * 3).to(tdt)
+                w = (torch.randn(d, generator=gen, device="cuda") * 0.1 + 1).to(tdt)
+                rmsnorm_cuda.launches = 0
+                got = rmsnorm_cuda(x, w, 1e-6)
+                torch.cuda.synchronize()
+                want = _rmsnorm_plain(x, w, 1e-6)
+                return {"launches": rmsnorm_cuda.launches, "pid": os.getpid(),
+                        "device": torch.cuda.get_device_name(0),
+                        "got": got.float().cpu(), "want": want.float().cpu()}
+
+        k = Kernel.remote()
+        for dtype in ("float32", "bfloat16"):
+            out = rt.get(k.run.remote(64, 4096, dtype), timeout=600)
+            assert out["launches"] == 1
+            assert out["pid"] != os.getpid()
+            assert out["device"] == torch.cuda.get_device_name(0)
+            _assert_close(out["got"].to(getattr(torch, dtype)),
+                          out["want"].to(getattr(torch, dtype)))
+        assert rt.available_resources().get("GPU", 0.0) == \
+            float(torch.cuda.device_count()) - 1.0
+    finally:
+        rt.shutdown()
+        config._config = None

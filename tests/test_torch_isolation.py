@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it loads neither JAX nor any module of
-ray_tpu (serving and one training step included), and it never falls back
-to the CPU on its own."""
+ray_tpu (serving, one training step and the runtime's worker processes
+included), its serialization runs the vendored cloudpickle and msgpack,
+and it never falls back to the CPU on its own."""
 
 import pathlib
 import re
@@ -52,6 +53,96 @@ def test_port_imports_and_serves_without_jax_or_ray_tpu():
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith("MODULES")]
     assert line and line[0].endswith("BAD []"), proc.stdout
     assert int(line[0].split()[1]) >= 16
+
+
+_WORKER = r"""
+import os, sys
+import ray_tpu_torch as rt
+
+rt.init(num_cpus=2)
+try:
+    @rt.remote
+    class Probe:
+        def report(self):
+            import cloudpickle, msgpack  # site packages, if the host has them
+            from ray_tpu_torch._private import serialization, protocol, worker
+            with open("/proc/self/cmdline", "rb") as f:
+                cmdline = f.read().split(b"\0")
+            main = sys.modules.get("ray_tpu_torch._private.worker_main")
+            return {
+                "bad": sorted(m for m in sys.modules
+                              if m == "jax" or m.startswith("jax.")
+                              or m == "ray_tpu" or m.startswith("ray_tpu.")),
+                "torch": "torch" in sys.modules,
+                "cmdline": [a.decode() for a in cmdline if a],
+                "worker_main": main.__file__ if main else None,
+                "main_file": sys.modules["__main__"].__file__,
+                "ser_cloudpickle": serialization.cloudpickle.__name__,
+                "worker_cloudpickle": worker.cloudpickle.__name__,
+                "protocol_msgpack": protocol.msgpack.__name__,
+                "site_cloudpickle": cloudpickle.__name__,
+                "site_msgpack": msgpack.__name__,
+            }
+
+    print("REPORT", repr(rt.get(Probe.remote().report.remote(), timeout=120)))
+    print("DRIVER_BAD", sorted(m for m in sys.modules if m == "jax"
+                               or m.startswith(("jax.", "ray_tpu."))))
+finally:
+    rt.shutdown()
+"""
+
+
+@pytest.mark.parametrize("zygote", [True, False], ids=["zygote", "popen"])
+def test_runtime_workers_load_no_jax_and_run_the_port(tmp_path, zygote):
+    """A port worker loads neither JAX nor ray_tpu, is launched as the
+    port's own worker_main (forked from the port's zygote, or exec'd
+    directly), and its serialization resolves cloudpickle and msgpack to
+    ray_tpu_torch._vendor even where the site packages exist."""
+    import ast
+    import os
+
+    script = tmp_path / "probe.py"
+    script.write_text(_WORKER)
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               RT_ZYGOTE_ENABLED="1" if zygote else "0")
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = dict(ln.split(" ", 1) for ln in proc.stdout.splitlines()
+                 if ln.startswith(("REPORT ", "DRIVER_BAD ")))
+    rep = ast.literal_eval(lines["REPORT"])
+    assert rep["bad"] == [] and lines["DRIVER_BAD"] == "[]"
+    assert not rep["torch"]  # workers import torch only when user code does
+    private = ROOT / "ray_tpu_torch" / "_private"
+    if zygote:
+        assert rep["cmdline"][1:] == ["-m", "ray_tpu_torch._private.zygote"]
+        assert rep["main_file"] == str(private / "zygote.py")
+        assert rep["worker_main"] == str(private / "worker_main.py")
+    else:
+        assert rep["cmdline"][1:] == ["-m", "ray_tpu_torch._private.worker_main"]
+        assert rep["main_file"] == str(private / "worker_main.py")
+    assert rep["ser_cloudpickle"] == "ray_tpu_torch._vendor.cloudpickle"
+    assert rep["worker_cloudpickle"] == "ray_tpu_torch._vendor.cloudpickle"
+    assert rep["protocol_msgpack"] == "ray_tpu_torch._vendor.msgpack"
+    assert (rep["site_cloudpickle"], rep["site_msgpack"]) == (
+        "cloudpickle", "msgpack")
+
+
+def test_no_source_imports_third_party_serializers():
+    """The port imports cloudpickle and msgpack only from its vendored
+    copies: a bare `import msgpack` would pick the site package's C
+    extension on one host and fail on another."""
+    pat = re.compile(r"^\s*(import|from)\s+(cloudpickle|msgpack)\b", re.M)
+    files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
+    files = [f for f in files if "_vendor" not in f.parts]
+    files.append(ROOT / "chip_smoke.py")
+    hits = [str(f) for f in files if pat.search(f.read_text())]
+    assert hits == []
+    vendored = ROOT / "ray_tpu_torch" / "_vendor"
+    assert (vendored / "cloudpickle" / "LICENSE").exists()
+    assert (vendored / "msgpack" / "LICENSE").exists()
+    assert not list(vendored.rglob("*.so"))
 
 
 def test_no_source_imports_jax_or_ray_tpu():
