@@ -62,6 +62,23 @@ prints no result line:
            tokens on the same weights; while it lives the GPU is held (a
            num_gpus=1 task stays pending) and after kill() the task runs.
            After shutdown() no runtime process is left.
+  serve    the Serve control plane: init(num_cpus=4), the HTTP proxy on
+           port 0, and serve.run(llm_deployment(...)) of llama3-8b (full
+           width and depth, bf16, seed 0, the slice phase's engine) from
+           a replica that holds the card as GPU 1.0 (a subclass of
+           LLMReplica that also reports its device and kernel counts).
+           The slice phase's 10 requests go through the DeploymentHandle
+           from 10 driver threads, streamed and unary (each round with
+           an empty prefix cache), then one JSON and one SSE request over
+           HTTP, one serve.call and one msgpack frame to the binary
+           ingress: every answer has its 32 tokens and the replica's
+           rmsnorm kernel runs 2 * n_layers + 1 times per pass. Then
+           chaos.kill_replica: the replacement holds the GPU and serves
+           (the seconds from the kill to that first success are printed);
+           llama3-8b at 2 layers, f32, through llm_deployment gives
+           generate()'s tokens; serve.shutdown() gives the GPU back; the
+           controller, the proxy and the zygote mapped no torch (and the
+           zygote no CUDA driver); no runtime process is left.
 
 Then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -263,6 +280,13 @@ def phase_kernels():
             "bound_by": "bytes",
         }
         timed.append(rec)
+    # The per-launch floor: the device time of a one-element elementwise
+    # op, timed the same way. No launch at the small serving shapes can
+    # take less, whatever the bytes bound says.
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms = graph_ms(lambda: one.add_(1.0))
+    for rec in timed:
+        rec["launch_floor_ms"] = launch_floor_ms
     emit({"phase": "kernels", "name": "rmsnorm_fwd",
           "all_ok": all(c["ok"] for c in cases), "max_abs_err": max_abs,
           "cases": cases, "timed": timed})
@@ -1419,7 +1443,570 @@ def phase_runtime(slice_rec, device_name):
     check(not rec["runtime_procs_after_zygote_stop"],
           f"runtime processes outlived the zygote's stop: "
           f"{rec['runtime_procs_after_zygote_stop']}")
-    return rec["serve"]["streamed"]["rmsnorm_launches"]
+    return rec["serve"]
+
+
+SERVE_APP = "llm"
+
+
+def _serve_replica_cls():
+    """LLMReplica with the smoke's probes: where it runs, and the rmsnorm
+    kernel's launches against the engine's passes, counted from a reset.
+    A subclass defined here travels to the replica by value, sealed, so
+    the controller never opens it."""
+    from ray_tpu_torch.serve.llm import LLMReplica
+
+    class CountingLLMReplica(LLMReplica):
+        def info(self):
+            import os
+            import sys
+
+            import torch
+
+            return {"pid": os.getpid(),
+                    "device": torch.cuda.get_device_name(),
+                    "n_layers": self.engine.cfg.n_layers,
+                    "dtype": str(self.engine.cfg.dtype),
+                    "jax_or_ray_tpu_modules": sorted(
+                        m for m in sys.modules if m in ("jax", "ray_tpu")
+                        or m.startswith(("jax.", "ray_tpu.")))}
+
+        def _settled(self, timeout_s=60.0):
+            """(launches, engine stats) once the engine is idle: nothing
+            queued or running and two reads 0.2 s apart agree."""
+            import time as _time
+
+            from ray_tpu_torch.ops.rmsnorm import rmsnorm_cuda
+
+            prev, deadline = None, _time.monotonic() + timeout_s
+            while _time.monotonic() < deadline:
+                st = self.engine.stats()
+                cur = (rmsnorm_cuda.launches, st["forward_passes"])
+                if cur == prev and not (st["active"] or st["waiting"]
+                                        or st["prefilling"]):
+                    return cur[0], st
+                prev = cur
+                _time.sleep(0.2)
+            raise RuntimeError("the engine never went idle")
+
+        def flush_prefix_cache(self):
+            """Each round starts without the last round's prompts in the
+            prefix cache (the runtime phase builds a fresh engine for
+            each round): pages held by no request go back to the pool."""
+            self._settled()
+            with self.engine._lock:
+                self.engine._prefix_cache.flush()
+                return self.engine._pool.in_use
+
+        def reset_counts(self):
+            from ray_tpu_torch.ops.rmsnorm import rmsnorm_cuda
+
+            _, st = self._settled()
+            rmsnorm_cuda.launches = 0
+            self._passes0 = st["forward_passes"]
+            return True
+
+        def counts(self):
+            from ray_tpu_torch.util import journal
+
+            launches, st = self._settled()
+            events = journal.snapshot()
+            return {"rmsnorm_launches": launches,
+                    "forward_passes": st["forward_passes"] - self._passes0,
+                    "engine_ttft_p50_s": st["latency"]["ttft"]["p50"],
+                    "engine_ttft_p99_s": st["latency"]["ttft"]["p99"],
+                    "hol_events": sum(e.get("kind") == "serve.hol"
+                                      for e in events),
+                    "hol_postmortem_requests": sum(
+                        e.get("kind") == "journal.trigger_requested"
+                        and e.get("reason") == "hol_blocking"
+                        for e in events),
+                    "hol_blocked_slot_seconds":
+                        st["hol"]["blocked_slot_seconds"]}
+
+    return CountingLLMReplica
+
+
+def _serve_app(loader, replica_cls, **engine_kw):
+    """llm_deployment's application with its class swapped for the smoke's
+    subclass (the deployment's name, options and init arguments stay)."""
+    from ray_tpu_torch.serve.llm import llm_deployment
+
+    app = llm_deployment(loader, ray_actor_options={"num_gpus": 1},
+                         **engine_kw)
+    return type(app)(app.deployment.options(func_or_class=replica_cls),
+                     app.init_args, app.init_kwargs)
+
+
+def _llama_loader(dtype: str, n_layers: int, seed: int):
+    """A model loader that runs in the replica: llama3-8b, random weights
+    from `seed`, built on the card there."""
+    def load():
+        import dataclasses
+
+        import torch
+
+        from ray_tpu_torch.models import configs, init_params
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = dataclasses.replace(configs.llama3_8b,
+                                  dtype=getattr(torch, dtype),
+                                  n_layers=n_layers or
+                                  configs.llama3_8b.n_layers)
+        return init_params(cfg, seed=seed, device="cuda"), cfg
+    return load
+
+
+def _serve_handle_round(h, prompts, shared_a, shared_b, new_tokens,
+                        sampling, streamed) -> dict:
+    """The slice phase's 10-request mix through the DeploymentHandle, each
+    request from its own driver thread; shared_b goes in once shared_a's
+    first token is back. Streamed: every request streams
+    (`method_name="stream"`) and TTFT is what the driver sees; unary:
+    only shared_a streams, the rest return their tokens at the end."""
+    import threading
+
+    sampled = {1, 5}
+    results, errors = {}, []
+    a_first = threading.Event()
+    stream_h = h.options(stream=True, method_name="stream")
+
+    def run(key, prompt, samp):
+        try:
+            t_sub = time.perf_counter()
+            if not streamed and key != "shared_a":
+                toks = h.remote(prompt, new_tokens, **samp).result(
+                    timeout=900)
+                results[key] = (toks, None, None)
+                return
+            toks, ttft = [], None
+            resp = stream_h.remote(prompt, new_tokens, **samp)
+            for tok in resp:
+                toks.append(tok)
+                if ttft is None:
+                    ttft = time.perf_counter() - t_sub
+                    if key == "shared_a":
+                        a_first.set()
+            results[key] = (toks, ttft, resp.rid)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(f"{key}: {type(e).__name__}: {e}")
+        finally:
+            a_first.set()
+
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(
+        i, p, sampling if i in sampled else {})) for i, p in enumerate(prompts)]
+    threads.append(threading.Thread(target=run, args=("shared_a", shared_a, {})))
+    for t in threads:
+        t.start()
+    a_first.wait(900)
+    tb = threading.Thread(target=run, args=("shared_b", shared_b, sampling))
+    tb.start()
+    for t in threads + [tb]:
+        t.join(900)
+    window_s = time.perf_counter() - t_start
+    check(not errors, f"requests through the handle failed: {errors}")
+    keys = [*range(len(prompts)), "shared_a", "shared_b"]
+    outs = [results[k][0] for k in keys]
+    tokens_out = sum(len(o) for o in outs)
+    rec = {"streamed": "all" if streamed else "shared_a only",
+           "requests": len(outs),
+           "finished": sum(len(o) == new_tokens for o in outs),
+           "tokens_out": tokens_out, "window_s": window_s,
+           "output_tok_per_s": tokens_out / window_s}
+    if streamed:
+        ttfts = [results[k][1] for k in keys]
+        rec["ttft_p50_s"] = _pct(ttfts, 0.5)
+        rec["ttft_p99_s"] = _pct(ttfts, 0.99)
+        rec["_ttft_by_rid"] = {results[k][2]: results[k][1] for k in keys}
+    rec["_outs"] = outs
+    return rec
+
+
+def _serve_ingress(http_addr, binary_addr, prompt, new_tokens) -> dict:
+    """One JSON request and one SSE stream over HTTP (urllib), one
+    request through serve.call and one msgpack frame to the proxy's
+    binary ingress."""
+    import asyncio
+    import urllib.request
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.protocol import connect
+
+    body = json.dumps({"prompt": prompt,
+                       "max_new_tokens": new_tokens}).encode()
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"{http_addr}/{SERVE_APP}", data=body,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        json_status, json_out = r.status, json.loads(r.read())["result"]
+    json_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"{http_addr}/{SERVE_APP}?stream=1",
+                                 data=body,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        sse_status, sse_type = r.status, r.headers["Content-Type"]
+        sse_body = r.read().decode()
+    sse_s = time.perf_counter() - t0
+    sse_out = [json.loads(ln[len("data: "):]) for ln in sse_body.splitlines()
+               if ln.startswith("data: ")]
+    t0 = time.perf_counter()
+    call_out = serve.call(SERVE_APP, prompt, new_tokens)
+    call_s = time.perf_counter() - t0
+
+    async def frame():
+        conn = await connect(*binary_addr)
+        try:
+            return await conn.call("serve_call", {
+                "app": SERVE_APP, "args": [prompt, new_tokens]}, timeout=300)
+        finally:
+            await conn.close()
+
+    t0 = time.perf_counter()
+    loop = asyncio.new_event_loop()
+    try:
+        binary_out = loop.run_until_complete(frame())
+    finally:
+        loop.close()
+    binary_s = time.perf_counter() - t0
+    return {"http_json": {"status": json_status, "tokens": len(json_out),
+                          "seconds": json_s, "_out": json_out},
+            "http_sse": {"status": sse_status, "content_type": sse_type,
+                         "data_events": len(sse_out),
+                         "error_events": sse_body.count("event: error"),
+                         "seconds": sse_s, "_out": sse_out},
+            "serve_call": {"tokens": len(call_out), "seconds": call_s,
+                           "_out": call_out},
+            "binary_ingress": {"tokens": len(binary_out.get("result") or []),
+                               "error": binary_out.get("error"),
+                               "seconds": binary_s,
+                               "_out": binary_out.get("result") or []}}
+
+
+def _phase_summary(records) -> dict:
+    """Per method the replica served ("stream": the streamed round and
+    the unary round's shared_a; "__call__": the rest), the p50 of each
+    observatory phase and of TTFT, in ms: where a request's time went,
+    from the handle's enqueue to its last token."""
+    out = {}
+    for method in ("stream", "__call__"):
+        recs = [r for r in records if r["method"] == method]
+        row = {"n": len(recs)}
+        for name in sorted({p for r in recs for p in r["phases"]}):
+            row[name] = _pct([r["phases"].get(name, 0.0) for r in recs],
+                             0.5) * 1e3
+        ttfts = [r["ttft_s"] for r in recs if r["ttft_s"] is not None]
+        row["ttft"] = _pct(ttfts, 0.5) * 1e3 if ttfts else None
+        out[method] = row
+    return out
+
+
+def _delivery(records, ttft_by_rid) -> dict:
+    """The streamed round, request by request: the TTFT the driver saw
+    against the replica's own (the handle's enqueue to the engine's first
+    token, on the replica's record of the same rid). Their difference is
+    the first token's way back: the stream thread, the long poll and the
+    reply."""
+    by_rid = {r["rid"]: r for r in records}
+    gaps, own = [], []
+    for rid, seen in ttft_by_rid.items():
+        rec = by_rid.get(rid)
+        if rec is None or rec["ttft_s"] is None:
+            continue
+        own.append(rec["ttft_s"])
+        gaps.append(seen - rec["ttft_s"])
+    check(len(gaps) == len(ttft_by_rid),
+          f"{len(gaps)} of {len(ttft_by_rid)} streamed requests have a "
+          f"replica record")
+    return {"n": len(gaps), "replica_ttft_p50": _pct(own, 0.5) * 1e3,
+            "gap_p50": _pct(gaps, 0.5) * 1e3, "gap_max": max(gaps) * 1e3,
+            "gap_min": min(gaps) * 1e3}
+
+
+def _worker_pids() -> dict:
+    """actor id (bytes) -> pid of the worker hosting it, from the raylet."""
+    from ray_tpu_torch._private import worker as worker_mod
+
+    client = worker_mod.get_client()
+    info = client._run(client.raylet.call("get_info", {}), timeout=30)
+    return {w["actor_id"]: w["pid"] for w in info["workers"]
+            if w.get("actor_id")}
+
+
+def _mapped(pid: int) -> dict:
+    """What a process has mapped: torch's libraries (an `import torch`),
+    the CUDA driver (a CUDA context), JAX's (an `import jax`)."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+    except OSError:
+        return {"readable": False}
+    return {"readable": True, "torch": "libtorch" in maps,
+            "cuda_driver": "libcuda.so" in maps,
+            "jax": "jaxlib" in maps or "xla_extension" in maps}
+
+
+def _serve_kill_and_replace(rt, h, prompt, new_tokens, device_name) -> dict:
+    """chaos.kill_replica, then one request a second until one succeeds:
+    the fault is recorded once it has settled, the replacement (which can
+    start only once the dead worker's GPU is released) serving."""
+    from ray_tpu_torch._private import chaos
+
+    chaos.enable()
+    try:
+        t0 = time.perf_counter()
+        victim = chaos.kill_replica(SERVE_APP, 0)
+        failures, out = [], None
+        deadline = time.monotonic() + 600
+        while out is None:
+            check(time.monotonic() < deadline,
+                  f"no request succeeded after kill_replica: {failures[-3:]}")
+            try:
+                out = h.remote(prompt, new_tokens).result(timeout=300)
+            except Exception as e:  # noqa: BLE001 — the fault settling
+                failures.append(type(e).__name__)
+                time.sleep(1.0)
+        kill_to_success_s = time.perf_counter() - t0
+    finally:
+        chaos.disable()
+    info = h.options(method_name="info").remote().result(timeout=60)
+    rec = {"killed_actor": victim, "kill_to_first_success_s": kill_to_success_s,
+           "failures_before_success": failures, "tokens": len(out),
+           "replacement_pid": info["pid"],
+           "replacement_device": info["device"],
+           "gpu_available_with_replacement":
+               rt.available_resources().get("GPU", 0.0)}
+    check(len(out) == new_tokens, f"the replacement returned {len(out)} "
+          f"tokens, not {new_tokens}")
+    check(info["device"] == device_name,
+          f"the replacement ran on {info['device']}")
+    check(rec["gpu_available_with_replacement"] == 0.0,
+          "the replacement replica does not hold the GPU")
+    return rec
+
+
+def _serve_parity(replica_cls) -> dict:
+    """llama3-8b at full width, 2 layers, f32, greedy, through
+    llm_deployment on the card: its tokens equal generate()'s in the
+    driver on the same weights."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import configs, init_params
+    from ray_tpu_torch.models.generate import generate
+
+    seed, new = SEED + 4, 8
+    h = serve.run(_serve_app(_llama_loader("float32", 2, seed), replica_cls,
+                             num_slots=4, max_len=256, prefill_chunk=64,
+                             kv_mode="paged", page_size=16),
+                  name="llm_f32")
+    cfg = dataclasses.replace(configs.llama3_8b, n_layers=2,
+                              dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (9, 130)]
+    outs = [r.result(timeout=600) for r in
+            [h.remote(p, new) for p in prompts]]
+    info = h.options(method_name="info").remote().result(timeout=60)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = init_params(cfg, seed=seed, device="cuda")
+    refs = [generate(params, [p], cfg, max_new_tokens=new)[0].tolist()
+            for p in prompts]
+    del params
+    torch.cuda.empty_cache()
+    serve.delete("llm_f32")
+    rec = {"parity_model": "llama3-8b, 2 layers", "parity_dtype": info["dtype"],
+           "parity_prompt_lengths": [len(p) for p in prompts],
+           "parity_deployment_equals_generate": outs == refs}
+    check(info["n_layers"] == 2, "the parity replica is not 2 layers deep")
+    check(outs == refs, f"llm_deployment's tokens {outs} != generate()'s "
+          f"{refs}")
+    return rec
+
+
+def _wait_gpu(rt, want: float, what: str) -> None:
+    deadline = time.monotonic() + 120
+    while rt.available_resources().get("GPU", 0.0) != want:
+        check(time.monotonic() < deadline, what)
+        time.sleep(0.1)
+
+
+def phase_serve(slice_rec, runtime_rec, device_name):
+    import gc
+    import os
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.models import configs
+    from ray_tpu_torch.serve.controller import CONTROLLER_NAME
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.llama3_8b
+    new_tokens = 32
+    sampling = {"temperature": 0.8, "top_k": 40, "top_p": 0.95}
+    engine_kw = {"num_slots": 8, "max_len": 2048, "prefill_chunk": 64,
+                 "kv_mode": "paged", "page_size": 16}
+    per_pass = 2 * cfg.n_layers + 1
+    replica_cls = _serve_replica_cls()
+    rng = np.random.default_rng(SEED)
+    prompts, shared_a, shared_b = _shared_prompts(rng, cfg.vocab_size)
+    rt.init(num_cpus=4)
+    try:
+        addrs = serve.start(port=0)
+        http_addr = addrs["head"]["http"]
+        proxy = serve._proxy
+        binary_addr = tuple(rt.get(proxy.binary_address.remote(), timeout=60))
+        t0 = time.perf_counter()
+        h = serve.run(_serve_app(_llama_loader("bfloat16", 0, SEED),
+                                 replica_cls, **engine_kw), name=SERVE_APP)
+        info = h.options(method_name="info").remote().result(timeout=900)
+        ready_s = time.perf_counter() - t0
+        status = serve.status()
+        gpu_held = rt.available_resources().get("GPU", 0.0)
+        check(status.get(SERVE_APP, {}).get("running_replicas") == 1,
+              f"serve.status() shows {status}")
+        check(gpu_held == 0.0, f"{gpu_held} GPU available while the "
+              f"replica holds it")
+        check(info["device"] == device_name,
+              f"the replica runs on {info['device']}, not {device_name}")
+        check(info["n_layers"] == cfg.n_layers,
+              "the replica does not serve full depth")
+        check(info["jax_or_ray_tpu_modules"] == [],
+              f"the replica loaded {info['jax_or_ray_tpu_modules']}")
+        # The main path starts here: the replica's count at 0 (its
+        # engine's warm-up is counted apart).
+        h.options(method_name="reset_counts").remote().result(timeout=120)
+        rounds = {}
+        for name, streamed in (("streamed", True), ("unary", False)):
+            pages = h.options(method_name="flush_prefix_cache").remote() \
+                .result(timeout=120)
+            check(pages == 0, f"{pages} KV pages in use before a round")
+            rounds[name] = _serve_handle_round(
+                h, prompts, shared_a, shared_b, new_tokens, sampling,
+                streamed)
+        ingress = _serve_ingress(http_addr, binary_addr, prompts[0],
+                                 new_tokens)
+        counts = h.options(method_name="counts").remote().result(timeout=120)
+        # The main path ends here; the replacement below runs apart.
+        replica = rt.get(serve.get_or_create_controller().get_replicas
+                         .remote(SERVE_APP), timeout=60)["replicas"][0]
+        records = rt.get(replica.observatory_records.remote(), timeout=60)
+        phases = _phase_summary(records)
+        phases["first_token_delivery"] = _delivery(
+            records, rounds["streamed"].pop("_ttft_by_rid"))
+        outs = [o for r in rounds.values() for o in r["_outs"]]
+        outs += [v["_out"] for v in ingress.values()]
+        for name, r in rounds.items():
+            check(r["finished"] == 10, f"{name}: only {r['finished']}/10 "
+                  f"requests through the handle returned {new_tokens} tokens")
+        for name, v in ingress.items():
+            check(len(v["_out"]) == new_tokens,
+                  f"{name} returned {len(v['_out'])} tokens: {v}")
+        check(ingress["http_json"]["status"] == 200
+              and ingress["http_sse"]["status"] == 200, "HTTP status")
+        check(ingress["http_sse"]["data_events"] == new_tokens
+              and ingress["http_sse"]["error_events"] == 0,
+              f"SSE: {ingress['http_sse']}")
+        check(ingress["http_sse"]["content_type"].startswith(
+            "text/event-stream"), "SSE content type")
+        check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+              "a token id through serve is out of range")
+        check(counts["forward_passes"] > 0 and counts["rmsnorm_launches"] ==
+              per_pass * counts["forward_passes"],
+              f"the replica's rmsnorm ran {counts['rmsnorm_launches']} times "
+              f"in {counts['forward_passes']} passes, not {per_pass} a pass")
+        kill = _serve_kill_and_replace(rt, h, prompts[0], new_tokens,
+                                       device_name)
+        serve.delete(SERVE_APP)
+        _wait_gpu(rt, 1.0, "the GPU was not released after delete")
+        parity = _serve_parity(replica_cls)
+        pids = _worker_pids()
+        ctrl_pid = pids.get(rt.get_actor(CONTROLLER_NAME)._actor_id.binary())
+        proxy_pid = pids.get(proxy._actor_id.binary())
+        zygotes = [p for p, pp, cmd in _runtime_procs()
+                   if pp == os.getpid() and "_private.zygote" in cmd]
+        check(ctrl_pid and proxy_pid and zygotes,
+              f"controller {ctrl_pid}, proxy {proxy_pid}, zygote {zygotes}")
+        mapped = {"controller": _mapped(ctrl_pid),
+                  "proxy": _mapped(proxy_pid),
+                  "zygote": _mapped(zygotes[0])}
+        live = _runtime_workers()
+        client = worker_mod.get_client()
+        postmortems = client._run(client._gcs_call("get_postmortems", {}),
+                                  timeout=30)["postmortems"]
+        serve.shutdown()
+        _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after "
+                  "serve.shutdown()")
+        gpu_after = rt.available_resources().get("GPU", 0.0)
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while _runtime_workers() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _runtime_workers()
+    from ray_tpu_torch._private import zygote_client
+
+    if zygote_client._shared is not None:
+        zygote_client._shared.stop()
+    deadline = time.monotonic() + 30
+    while _runtime_procs() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    reasons = {}
+    for pm in postmortems:
+        r = str(pm.get("reason", "")).split(":")[0]
+        reasons[r] = reasons.get(r, 0) + 1
+    rec = {"phase": "serve", "model": "llama3-8b", "dtype": "bfloat16",
+           "n_layers": info["n_layers"], "engine": engine_kw,
+           "replica_pid": info["pid"], "replica_device": info["device"],
+           "replica_ready_s": ready_s, "status": status,
+           "gpu_available_while_serving": gpu_held,
+           "http": http_addr, "binary": list(binary_addr),
+           **{name: {k: v for k, v in r.items() if k != "_outs"}
+              for name, r in rounds.items()},
+           "ingress": {n: {k: x for k, x in v.items() if k != "_out"}
+                       for n, v in ingress.items()},
+           **counts,
+           "rmsnorm_per_pass": counts["rmsnorm_launches"] /
+           max(1, counts["forward_passes"]),
+           "observatory_p50_ms": phases,
+           "kill_replica": kill, **parity,
+           "postmortems_by_reason": reasons,
+           "mapped": mapped, "workers_before_shutdown": len(live),
+           "gpu_available_after_serve_shutdown": gpu_after,
+           "workers_after_shutdown": left,
+           "runtime_procs_after_zygote_stop": _runtime_procs(),
+           "in_process_slice": {k: slice_rec[k] for k in (
+               "output_tok_per_s", "ttft_p50_s", "ttft_p99_s")},
+           "runtime_actor": {k: runtime_rec[k][m] for k, m in (
+               ("streamed", "output_tok_per_s"), ("unary", "output_tok_per_s"))}}
+    rec["runtime_actor"]["streamed_ttft_p50_s"] = runtime_rec["streamed"][
+        "ttft_p50_s"]
+    rec["runtime_actor"]["streamed_ttft_p99_s"] = runtime_rec["streamed"][
+        "ttft_p99_s"]
+    emit(rec)
+    check(all(m["readable"] for m in mapped.values()),
+          f"could not read a serve process's maps: {mapped}")
+    check(not mapped["controller"]["torch"] and not mapped["proxy"]["torch"],
+          f"the controller or the proxy imported torch: {mapped}")
+    check(not mapped["zygote"]["torch"] and
+          not mapped["zygote"]["cuda_driver"],
+          f"the zygote imported torch or made a CUDA context: {mapped}")
+    check(not any(m["jax"] for m in mapped.values()),
+          f"a serve process loaded JAX: {mapped}")
+    check(gpu_after == 1.0, f"GPU {gpu_after} after serve.shutdown()")
+    check(live, "no worker process was found while serve ran")
+    check(not left, f"workers outlived shutdown(): {left}")
+    check(not rec["runtime_procs_after_zygote_stop"],
+          f"runtime processes outlived the zygote's stop: "
+          f"{rec['runtime_procs_after_zygote_stop']}")
+    return counts["rmsnorm_launches"]
 
 
 def main() -> int:
@@ -1455,7 +2042,9 @@ def main() -> int:
     train_err, train_timed = run(phase_train_kernels)
     train = run(phase_train)
     run(phase_train_parity)
-    runtime_launches = run(phase_runtime, slice_rec, name)
+    runtime_rec = run(phase_runtime, slice_rec, name)
+    runtime_launches = runtime_rec["streamed"]["rmsnorm_launches"]
+    serve_launches = run(phase_serve, slice_rec, runtime_rec, name)
     emit({"phase": "timing", "seconds": seconds})
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "ray_tpu") or m.startswith(("jax.",
@@ -1468,10 +2057,11 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/rmsnorm.cu",
         "replaces": "ray_tpu/ops/rmsnorm.py:49",
         "launches": (launches + train_launches["rmsnorm_fwd"]
-                     + runtime_launches),
+                     + runtime_launches + serve_launches),
         "launches_by_path": {"serve": launches,
                              "train": train_launches["rmsnorm_fwd"],
-                             "runtime_actor": runtime_launches},
+                             "runtime_actor": runtime_launches,
+                             "serve_deployment": serve_launches},
         "max_abs_err": max_abs,
         "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],

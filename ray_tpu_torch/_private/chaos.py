@@ -346,7 +346,21 @@ def kill_replica(app: str, index: int = 0):
     redispatch path then have to recover. Returns the killed replica's
     actor id hex so tests can assert replacement."""
     _require_enabled("kill_replica")
-    raise not_ported("the serve controller", "A3")
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.config import get_config
+    from ray_tpu_torch.serve.controller import CONTROLLER_NAME
+
+    ctrl = rt.get_actor(CONTROLLER_NAME)
+    info = rt.get(ctrl.get_replicas.remote(app),
+                  timeout=get_config().serve_probe_timeout_s)
+    replicas = info["replicas"]
+    if not replicas:
+        raise RuntimeError(f"chaos.kill_replica: app {app!r} has no replicas")
+    victim = replicas[index % len(replicas)]
+    journal.emit("chaos.kill_replica", app=app, index=int(index),
+                 actor_id=victim._actor_id.hex())
+    rt.kill(victim)
+    return victim._actor_id.hex()
 
 
 def delay_dispatch(seconds: float, count: int = 1):
@@ -576,7 +590,14 @@ def drop_controller(restart: bool = True):
     handles-serve-from-cached-routes window. Returns the old actor's
     id hex."""
     _require_enabled("drop_controller")
-    raise not_ported("the serve controller", "A3")
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.serve.controller import CONTROLLER_NAME
+
+    ctrl = rt.get_actor(CONTROLLER_NAME)
+    journal.emit("chaos.drop_controller", restart=bool(restart),
+                 actor_id=ctrl._actor_id.hex())
+    rt.kill(ctrl, no_restart=not restart)
+    return ctrl._actor_id.hex()
 
 
 def postmortem(reason: str = "chaos.postmortem") -> str:

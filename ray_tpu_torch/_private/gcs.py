@@ -782,13 +782,22 @@ class GcsServer:
             expected = info.get("sync_version")
             if expected is None or ver != expected + 1:
                 return {"ok": False, "need_full": True, **drain_flag}
+        # The raylet's delta is against what it last sent, not against
+        # the advisory view, which placements deduct from in between:
+        # keep the reported view apart and rebase the advisory one on it.
+        # Applying the delta to the advisory view instead kept a
+        # deduction forever once the raylet acquired and released the
+        # resources between two heartbeats (an actor killed within one
+        # heartbeat period), and nothing could be placed there again.
         if full:
-            info["resources_available"] = dict(d["available"])
+            info["resources_reported"] = dict(d["available"])
         else:
-            avail = info["resources_available"]
+            avail = info.setdefault("resources_reported",
+                                    dict(info["resources_available"]))
             avail.update(d.get("delta", {}))
             for k in d.get("removed", ()):
                 avail.pop(k, None)
+        info["resources_available"] = dict(info["resources_reported"])
         if ver is not None:
             info["sync_version"] = ver
         if "total" in d:

@@ -24,11 +24,12 @@ How the port differs from the JAX engine:
     step, never one `.item()` per slot.
   * Sampling draws from a `torch.Generator` on the device (Gumbel-max):
     the same distribution as `jax.random.categorical`, not the same bits.
-  * Waiting for the runtime slice: the `ray_tpu.util.metrics` export, the
-    observatory, chaos injection, the journal/postmortem call of the
-    head-of-line watchdog, the tensor-parallel `mesh`, and
-    `llm_deployment`. TTFT/TPOT and the head-of-line ledger are kept
-    per engine and read through `stats()`.
+  * The `util.metrics` export (`_engine_metrics`), the observatory's
+    per-request stamps, the chaos hooks and the head-of-line watchdog's
+    journal and postmortem calls are the JAX engine's. `stats()`'s
+    TTFT/TPOT summaries come from the engine's own samples (`_Latency`,
+    with p50 and p99), not from the process-wide histograms.
+  * The tensor-parallel `mesh` waits for ROADMAP A5.
 
 The engine runs on the device that holds the parameters.
 """
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch.exceptions import (
     PromptTooLongError,
@@ -61,9 +63,113 @@ from ray_tpu_torch.models.transformer import (
 from ray_tpu_torch.ops import apply_rope, rmsnorm
 from ray_tpu_torch.ops.rope import rope_tables
 from ray_tpu_torch.serve import context as request_context
-from ray_tpu_torch.serve import paged_kv
+from ray_tpu_torch.serve import observatory, paged_kv
 
 NEG_INF = -1e30
+
+_STEP_MS_BOUNDARIES = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,
+                       100.0, 250.0)
+_metrics_lock = threading.Lock()
+_metrics: Optional[Dict] = None
+
+
+def _engine_metrics() -> Dict:
+    """Module-level serving metrics (ray_tpu_torch.util.metrics): one set
+    per process, shared by every engine, flushed to GCS/Prometheus by the
+    metrics flusher. Created lazily so importing llm.py never spins up
+    the flusher thread. The JAX engine's `serve_llm_recompiles_total`
+    has no counterpart in eager PyTorch."""
+    global _metrics
+    with _metrics_lock:
+        if _metrics is None:
+            from ray_tpu_torch.util import metrics as _mx
+            from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
+
+            _metrics = {
+                "dispatch_ms": Histogram(
+                    "serve_llm_step_dispatch_ms",
+                    "Decode-step dispatch time (enqueue the step's kernels)",
+                    boundaries=_STEP_MS_BOUNDARIES,
+                ),
+                "fetch_ms": Histogram(
+                    "serve_llm_step_fetch_ms",
+                    "Blocking time draining the previous step's async "
+                    "device->host token copy",
+                    boundaries=_STEP_MS_BOUNDARIES,
+                ),
+                "host_ms": Histogram(
+                    "serve_llm_step_host_ms",
+                    "Host-side engine work per step (scheduling, token "
+                    "distribution, locking)",
+                    boundaries=_STEP_MS_BOUNDARIES,
+                ),
+                "param_uploads": Counter(
+                    "serve_llm_param_uploads_total",
+                    "Host->device sampling-param/active-mask refreshes "
+                    "(only on slot admission/eviction, never per step)",
+                ),
+                # Request-level latency: TTFT is submit->first token
+                # (queue wait + prefill), TPOT the mean inter-token
+                # interval after the first.
+                "ttft_s": Histogram(
+                    "serve_llm_ttft_seconds",
+                    "Time to first token: submit() to the first pushed "
+                    "token, per request",
+                    boundaries=_mx.LATENCY_BOUNDARIES_WIDE,
+                ),
+                "tpot_s": Histogram(
+                    "serve_llm_tpot_seconds",
+                    "Time per output token after the first (decode-rate "
+                    "inverse), per finished request",
+                    boundaries=_mx.LATENCY_BOUNDARIES,
+                ),
+                "occupancy": Gauge(
+                    "serve_llm_batch_occupancy",
+                    "Decoding slots in use / total slots, sampled every "
+                    "engine step (how full the continuous batch runs)",
+                ),
+                "waiting": Gauge(
+                    "serve_llm_waiting_requests",
+                    "Requests enqueued but not yet granted a decode slot "
+                    "(admission queue depth; the backlog half of the "
+                    "autoscaling signal next to occupancy)",
+                ),
+                "admission_wait_s": Histogram(
+                    "serve_llm_admission_wait_seconds",
+                    "submit() enqueue to decode-slot grant, per request "
+                    "(pure queueing: saturation shows here before TTFT)",
+                    boundaries=_mx.LATENCY_BOUNDARIES,
+                ),
+                "hol_s": Counter(
+                    "serve_hol_blocked_seconds_total",
+                    "Decode-slot-seconds stalled behind prefill passes "
+                    "crossing serve_hol_threshold_s (head-of-line "
+                    "blocking attributed to the long prefill causing it)",
+                ),
+                # Paged KV memory plane (serve/paged_kv.py).
+                "kv_pages": Gauge(
+                    "serve_kv_pages_in_use",
+                    "KV page-pool pages currently referenced (request "
+                    "block tables + prefix-cache entries), sampled every "
+                    "engine step",
+                ),
+                "prefix_hits": Counter(
+                    "serve_prefix_cache_hits_total",
+                    "Admissions whose prompt prefix was resident in the "
+                    "page-level prefix cache (>= 1 full page shared)",
+                ),
+                "prefix_misses": Counter(
+                    "serve_prefix_cache_misses_total",
+                    "Admissions that found no resident prompt prefix "
+                    "(every prefill chunk recomputed)",
+                ),
+                "prefill_skipped": Counter(
+                    "serve_prefill_tokens_skipped_total",
+                    "Prompt tokens NOT re-prefilled because their pages "
+                    "were shared from the prefix cache",
+                ),
+            }
+        return _metrics
 
 
 def init_slotted_cache(cfg: TransformerConfig, slots: int, max_len: int,
@@ -222,8 +328,8 @@ def _prefill_chunk(params, tokens, n_valid: int, slot: int, offset: int,
 
 
 class _Latency:
-    """Per-engine TTFT/TPOT samples (the JAX engine's process-wide
-    histograms belong to the metrics export of the runtime slice)."""
+    """Per-engine TTFT/TPOT samples, read by `stats()` (the process-wide
+    histograms of `_engine_metrics` keep no percentiles)."""
 
     def __init__(self, keep: int = 4096):
         self._lock = threading.Lock()
@@ -267,6 +373,9 @@ class GenerationHandle:
         self.submitted_at: Optional[float] = None
         self._first_token_t: Optional[float] = None
         self._latency: Optional[_Latency] = None
+        # Observatory stamp card (set by submit() from the request
+        # thread's context; engine thread writes marks into it).
+        self.obs = None
         # Survival plane: absolute deadline (0 = none), tenant label for
         # the WFQ admission queue, and the caller-side cancel flag the
         # engine loop polls at step boundaries.
@@ -293,13 +402,26 @@ class GenerationHandle:
             self._tokens.append(int(token))
             self._done = self._done or done
             self._cond.notify_all()
+        # Observe outside the condition: a blocked consumer wakes without
+        # waiting on the metrics registry lock.
+        m = _engine_metrics()
         lat = self._latency
-        if lat is not None:
-            if first and self.submitted_at is not None:
+        if first and self.submitted_at is not None:
+            m["ttft_s"].observe(now - self.submitted_at)
+            if lat is not None:
                 lat.observe("ttft", now - self.submitted_at)
-            if done and self.produced > 1 and not first:
-                lat.observe("tpot", (now - self._first_token_t)
-                            / (self.produced - 1))
+        if done and self.produced > 1 and not first:
+            tpot = (now - self._first_token_t) / (self.produced - 1)
+            m["tpot_s"].observe(tpot)
+            if lat is not None:
+                lat.observe("tpot", tpot)
+        obs = self.obs
+        if obs is not None:
+            if first:
+                obs.marks["first_token"] = now
+            if done:
+                obs.marks["engine_done"] = now
+                obs.tokens_out = self.produced
 
     def _fail(self, err: BaseException):
         with self._cond:
@@ -436,6 +558,7 @@ class ContinuousBatchingEngine:
             self._prefix_hits = 0
             self._prefix_misses = 0
             self._prefill_tok_skipped = 0
+            self._chaos_held: list = []
         cache = self._fresh_cache()
         self._k, self._v = cache["k"], cache["v"]
         self._lengths = cache["lengths"]
@@ -574,6 +697,30 @@ class ContinuousBatchingEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _apply_kv_chaos(self):
+        """Consume pending paged-KV chaos injections (RT_CHAOS=1 only):
+        a one-shot prefix-cache flush, and a persistent pool-pressure
+        target — the engine holds `frac` of the usable pages hostage,
+        adjusting toward the target as pages free up, until the frac is
+        set back to 0."""
+        if self._prefix_cache is not None and chaos.take_flush_prefix_cache():
+            with self._lock:
+                self._prefix_cache.flush()
+        frac = chaos.kv_exhaust_frac()
+        if frac is None and not self._chaos_held:
+            return
+        target = int(round((frac or 0.0) * self._pool.usable))
+        with self._lock:
+            if len(self._chaos_held) > target:
+                give_back = self._chaos_held[target:]
+                del self._chaos_held[target:]
+                self._pool.release(give_back)
+            elif len(self._chaos_held) < target:
+                grab = min(target - len(self._chaos_held),
+                           self._pool.free_pages)
+                if grab > 0:
+                    self._chaos_held.extend(self._pool.alloc(grab))
+
     def _fresh_cache(self) -> Dict:
         if self._paged:
             return paged_kv.init_paged_cache(
@@ -619,6 +766,7 @@ class ContinuousBatchingEngine:
             max_new_tokens = self.default_max_new_tokens
         if int(max_new_tokens) < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        obs = observatory.current()
         meta = request_context.current()
         tenant = (meta.tenant if meta is not None else "") or "default"
         deadline_ts = meta.deadline_ts if meta is not None else 0.0
@@ -626,6 +774,7 @@ class ContinuousBatchingEngine:
         if deadline_ts and time.time() > deadline_ts:
             with self._lock:
                 self._deadline_expired += 1
+            observatory.record_deadline_expired("", "engine_admission")
             raise RequestCancelledError(
                 "deadline expired before engine admission",
                 reason="deadline", rid=meta.rid if meta else "",
@@ -636,6 +785,7 @@ class ContinuousBatchingEngine:
                 retry = min(5.0, max(
                     0.1, 0.05 * self._waiting_n / max(1, self.num_slots)
                 ))
+                observatory.record_shed("", tenant, "queue_full")
                 raise ServeOverloadedError(
                     f"engine admission queue full "
                     f"({self._waiting_n} waiting >= "
@@ -653,12 +803,19 @@ class ContinuousBatchingEngine:
             h.top_p = float(1.0 if top_p is None else top_p)
             h.tenant = tenant
             h.deadline_ts = deadline_ts
+            # Adopt the request thread's stamp card: engine admission
+            # wait is measured from THIS enqueue, not from slot grant.
+            h.obs = obs
+            if obs is not None:
+                obs.marks["engine_enqueue"] = h.submitted_at
+                obs.tokens_in = len(prompt)
             q = self._waiting.get(tenant)
             if q is None:
                 q = self._waiting[tenant] = deque()
                 self._wfq_rr.append(tenant)
             q.append(h)
             self._waiting_n += 1
+            _engine_metrics()["waiting"].set(float(self._waiting_n))
         self._work.set()
         return h
 
@@ -690,6 +847,7 @@ class ContinuousBatchingEngine:
                                 if lookups else None),
             "prefill_tokens_skipped": self._prefill_tok_skipped,
             "bt_uploads": self._bt_uploads,
+            "chaos_held_pages": len(self._chaos_held),
             "roots": (self._prefix_cache.roots()
                       if self._prefix_cache is not None else []),
         }
@@ -792,6 +950,7 @@ class ContinuousBatchingEngine:
         prefill ONE chunk per loop iteration. Requests whose deadline
         expired while queued (or that the caller cancelled) are dropped
         here instead of taking a slot."""
+        admitted = bool(self._waiting_n and self._free)
         now = time.time()
         while self._free and self._waiting_n:
             h = self._pop_waiting_locked()
@@ -806,6 +965,7 @@ class ContinuousBatchingEngine:
                     f"(request {h.request_id})",
                     reason="deadline", rid=str(h.request_id),
                 ))
+                observatory.record_deadline_expired("", "engine_admission")
                 continue
             # The loop cuts a sequence at lengths >= max_len - 2, so a
             # prompt of P rows can emit max_len - 1 - P tokens.
@@ -826,6 +986,13 @@ class ContinuousBatchingEngine:
                     q.appendleft(h)
                     self._waiting_n += 1
                     break
+            grant_t = time.perf_counter()
+            if h.submitted_at is not None:
+                _engine_metrics()["admission_wait_s"].observe(
+                    grant_t - h.submitted_at
+                )
+            if h.obs is not None:
+                h.obs.marks["slot_grant"] = grant_t
             slot = self._free.popleft()
             entry = {"h": h, "offset": 0}
             if self._paged:
@@ -837,6 +1004,8 @@ class ContinuousBatchingEngine:
                 row[:len(res["pages"])] = res["pages"]
                 self._bt_dirty = True
             self._prefilling[slot] = entry
+        if admitted:
+            _engine_metrics()["waiting"].set(float(self._waiting_n))
 
     def _reserve_paged_locked(self, h) -> Optional[Dict]:
         """Pages for one admission: shared prefix pages from the cache
@@ -873,13 +1042,17 @@ class ContinuousBatchingEngine:
         # Always recompute at least the final prompt token: its logits
         # seed the first generated token.
         skip = min(len(shared) * ps, p_len - 1)
+        m = _engine_metrics()
         if hashes:
             if shared:
                 self._prefix_hits += 1
+                m["prefix_hits"].inc(1)
             else:
                 self._prefix_misses += 1
+                m["prefix_misses"].inc(1)
         if skip > 0:
             self._prefill_tok_skipped += skip
+            m["prefill_skipped"].inc(skip)
         fw = skip // ps
         if skip and fw < len(shared):
             # Full-prefix hit: the recomputed final token's K/V lands in
@@ -920,6 +1093,11 @@ class ContinuousBatchingEngine:
         First tokens stay on the device for the decode loop; ONE batched
         copy delivers this round's first tokens to their handles."""
         c = self.prefill_chunk
+        # Chaos hook: a deterministic stretch stands in for a huge
+        # prompt, inside the timed window so the HOL watchdog sees it.
+        injected = chaos.take_prefill_delay()
+        if injected:
+            time.sleep(injected)
         if self._paged and self._bt_dirty:
             self._upload_block_table()
         self._last_prefill_work = [
@@ -942,6 +1120,7 @@ class ContinuousBatchingEngine:
                         f"(request {h.request_id})",
                         reason="deadline", rid=str(h.request_id),
                     ))
+                    observatory.record_deadline_expired("", "engine_decode")
                 with self._lock:
                     self._deadline_expired += int(not h.cancelled)
                     del self._prefilling[slot]
@@ -1028,6 +1207,15 @@ class ContinuousBatchingEngine:
                 "blocked_slot_seconds": blocked,
                 "culprits": self._last_prefill_work,
             })
+        _engine_metrics()["hol_s"].inc(blocked)
+        from ray_tpu_torch.util import journal
+
+        journal.emit("serve.hol", prefill_s=round(prefill_s, 4),
+                     victims=n_active,
+                     blocked_slot_seconds=round(blocked, 4))
+        journal.trigger_postmortem(
+            "hol_blocking", prefill_s=round(prefill_s, 4),
+            victims=n_active)
 
     def _loop(self):
         """Pipelined decode loop: dispatch step k+1 (inputs from step k's
@@ -1045,6 +1233,8 @@ class ContinuousBatchingEngine:
         while not self._stop_evt.is_set():
             try:
                 t_iter = time.perf_counter()
+                if self._paged:
+                    self._apply_kv_chaos()
                 with self._lock:
                     self._admit_locked()
                 if self._prefilling:
@@ -1061,6 +1251,7 @@ class ContinuousBatchingEngine:
                 if snapshot:
                     if self._params_dirty:
                         self._upload_sampling_state()
+                        _engine_metrics()["param_uploads"].inc(1)
                     if self._paged and self._bt_dirty:
                         self._upload_block_table()
                     t0 = time.perf_counter()
@@ -1103,6 +1294,9 @@ class ContinuousBatchingEngine:
                                         reason="deadline",
                                         rid=str(h.request_id),
                                     ))
+                                    observatory.record_deadline_expired(
+                                        "", "engine_decode"
+                                    )
                                 self._evict_locked(s)
                                 continue
                             tok = int(toks[s])
@@ -1124,6 +1318,14 @@ class ContinuousBatchingEngine:
                         time.perf_counter() - t_iter - dispatch_s - fetch_s,
                         0.0,
                     )
+                    m = _engine_metrics()
+                    m["dispatch_ms"].observe(dispatch_s * 1e3)
+                    m["fetch_ms"].observe(fetch_s * 1e3)
+                    m["host_ms"].observe(host_s * 1e3)
+                    m["occupancy"].set(len(snapshot) / self.num_slots)
+                    m["waiting"].set(float(self._waiting_n))
+                    if self._paged:
+                        m["kv_pages"].set(float(self._pool.in_use))
                     with self._lock:
                         self._t_dispatch += dispatch_s
                         self._t_fetch += fetch_s
@@ -1156,6 +1358,7 @@ class ContinuousBatchingEngine:
                         if self._prefix_cache is not None:
                             self._prefix_cache.reset()
                         self._slot_pages.clear()
+                        self._chaos_held = []
                         self._bt_host[:] = 0
                         self._bt_dirty = False
                     self._tokens_dev = torch.zeros(
@@ -1173,8 +1376,11 @@ class ContinuousBatchingEngine:
 
 class LLMReplica:
     """Replica class wrapping the engine: blocking generate, token
-    streaming, and engine stats. `model_loader()` returns (params, cfg);
-    the engine runs on the device that holds the params."""
+    streaming (rides the replica generator protocol -> SSE at the
+    proxy), and engine stats. `model_loader()` runs in the replica and
+    returns (params, cfg); the engine runs on the device that holds the
+    params, so a loader that builds them on `cuda` makes the CUDA context
+    in the replica process."""
 
     def __init__(self, model_loader, num_slots: int = 4, max_len: int = 256,
                  eos_id: Optional[int] = None,
@@ -1227,3 +1433,40 @@ class LLMReplica:
 
     def shutdown(self):
         self.engine.shutdown()
+
+
+def llm_deployment(model_loader, *, num_slots: int = 4, max_len: int = 256,
+                   eos_id: Optional[int] = None,
+                   default_max_new_tokens: int = 32, num_replicas: int = 1,
+                   max_ongoing_requests: int = 64,
+                   ray_actor_options: Optional[dict] = None,
+                   prefill_chunk: int = 64, kv_mode: Optional[str] = None,
+                   page_size: Optional[int] = None,
+                   kv_pages: Optional[int] = None):
+    """A ready-to-run continuous-batching LLM application.
+
+        app = llm_deployment(loader, num_slots=8,
+                             ray_actor_options={"num_gpus": 1})
+        handle = serve.run(app, name="llm")
+        tokens = handle.remote([1, 2, 3]).result()   # blocking generate
+        for t in handle.options(stream=True, method_name="stream") \
+                .remote([1, 2, 3]): ...              # token stream
+
+    `loader()` runs in the replica and returns (params, cfg).
+    max_ongoing_requests defaults high: admission control lives in the
+    engine (waiting queue + slots), not the router."""
+    from ray_tpu_torch.serve.deployment import deployment
+
+    dep = deployment(
+        LLMReplica,
+        name="LLMReplica",
+        num_replicas=num_replicas,
+        max_ongoing_requests=max_ongoing_requests,
+        ray_actor_options=ray_actor_options or {},
+    )
+    return dep.bind(
+        model_loader, num_slots=num_slots, max_len=max_len, eos_id=eos_id,
+        default_max_new_tokens=default_max_new_tokens,
+        prefill_chunk=prefill_chunk, kv_mode=kv_mode,
+        page_size=page_size, kv_pages=kv_pages,
+    )

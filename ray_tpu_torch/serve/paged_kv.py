@@ -28,9 +28,8 @@ bit.
 
 from __future__ import annotations
 
-import hashlib
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +43,10 @@ from ray_tpu_torch.models.transformer import (
 )
 from ray_tpu_torch.ops import rmsnorm
 from ray_tpu_torch.ops.rope import rope_tables
+from ray_tpu_torch.serve._prefix_hash import (  # noqa: F401
+    page_hashes,
+    prefix_route_key,
+)
 
 # The reserved NULL/scratch page (see module docstring).
 NULL_PAGE = 0
@@ -222,35 +225,6 @@ class PrefixCache:
         chain being resident, and it keeps the advertisement bounded."""
         out = [k for k, (_, d) in self._entries.items() if d == 0]
         return out[-limit:]
-
-
-def page_hashes(tokens, page_size: int) -> List[str]:
-    """Chain hashes of every FULL page of `tokens` (partial tail pages
-    are never cached — their rows would change as the request decodes).
-    Key i commits to tokens[0 : (i+1)*page_size]."""
-    arr = np.asarray(tokens, dtype=np.int32).reshape(-1)
-    out: List[str] = []
-    parent = b""
-    for i in range(len(arr) // page_size):
-        h = hashlib.blake2b(
-            parent + arr[i * page_size:(i + 1) * page_size].tobytes(),
-            digest_size=16,
-        )
-        parent = h.digest()
-        out.append(h.hexdigest())
-    return out
-
-
-def prefix_route_key(tokens, page_size: int) -> Optional[str]:
-    """The depth-0 chain key of a prompt (None when the prompt does not
-    fill one page) — what the handle matches against replicas'
-    advertised `roots` for prefix-affinity routing."""
-    arr = np.asarray(tokens, dtype=np.int32).reshape(-1)
-    if page_size < 1 or len(arr) < page_size:
-        return None
-    return hashlib.blake2b(
-        arr[:page_size].tobytes(), digest_size=16
-    ).hexdigest()
 
 
 def init_paged_cache(cfg: TransformerConfig, slots: int, num_pages: int,

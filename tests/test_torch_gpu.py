@@ -2,7 +2,8 @@
 plain versions, one training step through the kernels against the same
 step on the CPU, the engine on the card, and the runtime core's GPU
 resource (detection, and a num_gpus=1 actor that launches the RMSNorm
-kernel in its own worker process). Each test skips without a
+kernel in its own worker process), and llm_deployment through serve.run
+from a num_gpus=1 replica. Each test skips without a
 CUDA device. This file imports no JAX, so on a machine with a card and
 without JAX it runs on its own:
 
@@ -395,3 +396,48 @@ def test_gpu_actor_launches_rmsnorm_kernel_in_its_worker(cuda_device,
     finally:
         rt.shutdown()
         config._config = None
+
+
+def test_llm_deployment_on_card_equals_generate(cuda_device, monkeypatch):
+    """A 2-layer f32 model served through serve.run(llm_deployment(...))
+    from a num_gpus=1 replica gives generate()'s greedy tokens, unary and
+    streamed, and holds the card while it lives."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import config
+    from ray_tpu_torch.serve.llm import llm_deployment
+
+    cfg = dataclasses.replace(configs.llama3_8b, n_layers=2,
+                              dtype=torch.float32)
+
+    def loader():
+        import torch
+
+        from ray_tpu_torch.models import init_params
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return init_params(cfg, seed=3, device="cuda"), cfg
+
+    monkeypatch.delenv("RT_NUM_GPUS", raising=False)
+    config._config = None
+    prompts = [[1, 2, 3], list(range(10, 139))]
+    rt.init(num_cpus=2)
+    try:
+        h = serve.run(llm_deployment(loader, num_slots=2, max_len=256,
+                                     ray_actor_options={"num_gpus": 1}),
+                      name="llm")
+        unary = [h.remote(p, 6).result(timeout=600) for p in prompts]
+        streamed = [list(h.options(stream=True, method_name="stream")
+                         .remote(p, 6)) for p in prompts]
+        held = rt.available_resources().get("GPU", 0.0)
+        serve.shutdown()
+    finally:
+        rt.shutdown()
+        config._config = None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = init_params(cfg, seed=3, device=cuda_device)
+    refs = [generate(params, [p], cfg, max_new_tokens=6)[0].tolist()
+            for p in prompts]
+    assert unary == refs
+    assert streamed == refs
+    assert held == float(torch.cuda.device_count()) - 1.0

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: it loads neither JAX nor any module of
 ray_tpu (serving, one training step and the runtime's worker processes
 included), its serialization runs the vendored cloudpickle and msgpack,
-and it never falls back to the CPU on its own."""
+and it never falls back to the CPU on its own. The Serve control plane
+(controller, proxy, handle) loads no torch, and the zygote never makes a
+CUDA context."""
 
 import pathlib
 import re
@@ -152,6 +154,113 @@ def test_no_source_imports_jax_or_ray_tpu():
     assert len(files) > 10
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert hits == []
+
+
+_SERVE_MODULES = ["ray_tpu_torch.serve", "ray_tpu_torch.serve.autoscale",
+                  "ray_tpu_torch.serve.batching",
+                  "ray_tpu_torch.serve.controller",
+                  "ray_tpu_torch.serve.deployment",
+                  "ray_tpu_torch.serve.handle",
+                  "ray_tpu_torch.serve.multiplex",
+                  "ray_tpu_torch.serve.observatory",
+                  "ray_tpu_torch.serve.proxy",
+                  "ray_tpu_torch.serve.replica",
+                  "ray_tpu_torch.serve.schema",
+                  "ray_tpu_torch.serve._prefix_hash"]
+
+
+@pytest.mark.parametrize("module", _SERVE_MODULES)
+def test_serve_control_plane_module_imports_no_torch(module):
+    """The control plane's modules load neither torch, JAX nor ray_tpu:
+    the controller, the proxy and every handle import them."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'ray_tpu', 'aiohttp')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+_SERVE_PROCS = r"""
+import json, os, sys, urllib.request
+import ray_tpu_torch as rt
+from ray_tpu_torch import serve
+from ray_tpu_torch._private import worker as worker_mod
+from ray_tpu_torch.serve.controller import CONTROLLER_NAME
+from ray_tpu_torch.serve.llm import llm_deployment
+
+
+def loader():
+    import torch
+    torch.set_num_threads(1)
+    from ray_tpu_torch.models import configs, init_params
+    return init_params(configs.tiny, seed=0, device="cpu"), configs.tiny
+
+
+def mapped(pid):
+    with open(f"/proc/{pid}/maps") as f:
+        maps = f.read()
+    return {"torch": "libtorch" in maps, "cuda_driver": "libcuda.so" in maps}
+
+
+rt.init(num_cpus=4)
+try:
+    http = serve.start(port=0)["head"]["http"]
+    h = serve.run(llm_deployment(loader, num_slots=2, max_len=32,
+                                 default_max_new_tokens=3), name="llm")
+    req = urllib.request.Request(http + "/llm",
+                                 data=json.dumps({"prompt": [1, 2]}).encode())
+    with urllib.request.urlopen(req, timeout=120) as r:
+        tokens = json.loads(r.read())["result"]
+    client = worker_mod.get_client()
+    info = client._run(client.raylet.call("get_info", {}), timeout=30)
+    pids = {w["actor_id"]: w["pid"] for w in info["workers"] if w["actor_id"]}
+    replica = rt.get(serve.get_or_create_controller().get_replicas.remote(
+        "llm"), timeout=30)["replicas"][0]
+    zygote = [p for p in os.listdir("/proc") if p.isdigit()
+              and open(f"/proc/{p}/cmdline", "rb").read().split(b"\0")[1:3]
+              == [b"-m", b"ray_tpu_torch._private.zygote"]
+              and int(open(f"/proc/{p}/stat").read().rsplit(") ", 1)[1]
+                      .split()[1]) == os.getpid()]
+    report = {
+        "tokens": tokens,
+        "controller": mapped(pids[rt.get_actor(CONTROLLER_NAME)
+                                  ._actor_id.binary()]),
+        "proxy": mapped(pids[serve._proxy._actor_id.binary()]),
+        "replica": mapped(pids[replica._actor_id.binary()]),
+        "zygote": [mapped(int(p)) for p in zygote],
+    }
+    print("REPORT " + json.dumps(report))
+finally:
+    serve.shutdown()
+    rt.shutdown()
+"""
+
+
+def test_serve_controller_and_proxy_never_load_torch(tmp_path):
+    """With llm_deployment serving through the HTTP proxy, only the
+    replica maps torch: the controller and the proxy, which route sealed
+    user code without opening it, do not, and the zygote that forks every
+    worker loads neither torch nor the CUDA driver."""
+    import json
+    import os
+
+    script = tmp_path / "serve_procs.py"
+    script.write_text(_SERVE_PROCS)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), RT_NUM_GPUS="0",
+               RT_ZYGOTE_ENABLED="1")
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("REPORT ")]
+    rep = json.loads(line[0][len("REPORT "):])
+    assert len(rep["tokens"]) == 3
+    assert rep["replica"]["torch"]  # the check sees torch where it is
+    assert rep["controller"] == {"torch": False, "cuda_driver": False}
+    assert rep["proxy"] == {"torch": False, "cuda_driver": False}
+    assert rep["zygote"] == [{"torch": False, "cuda_driver": False}]
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):

@@ -114,13 +114,17 @@ def api():
     rt.get(dead.add.remote(1))
     rt.kill(dead)
     # The kill is asynchronous: a call may still land before the actor
-    # dies, so call until one fails.
+    # dies, and a call that rides the dying connection fails with
+    # ActorUnavailableError. Both mean the kill is still in flight, so
+    # call until the settled fault, ActorDiedError, comes.
     deadline = time.monotonic() + 60
     while "actor_died" not in out and time.monotonic() < deadline:
         try:
             rt.get(dead.add.remote(1), timeout=60)
             time.sleep(0.05)
-        except exc.ActorError as e:
+        except exc.ActorUnavailableError:
+            time.sleep(0.05)
+        except exc.ActorDiedError as e:
             out["actor_died"] = type(e).__name__
 
     @rt.remote
