@@ -79,6 +79,26 @@ prints no result line:
            generate()'s tokens; serve.shutdown() gives the GPU back; the
            controller, the proxy and the zygote mapped no torch (and the
            zygote no CUDA driver); no runtime process is left.
+  trainer  train.torch.TorchTrainer with ScalingConfig(num_workers=1,
+           use_gpu=True) on an NCCL group of one: the worker holds the
+           GPU and runs the train phase's step (llama2-1b, full width and
+           depth, bf16, seed 0, the same AdamW and the same 13 batches
+           made on the card) inside the flight recorder's StepProfiler,
+           reporting loss, step time and kernel launches each step. After
+           step 4 it saves params and AdamW state through
+           Checkpoint.from_pytree (5.6 GB); after step 6 it dies once
+           (chaos.die); the gang restarts on the card, restores step 4
+           and runs to step 13. Launches per step must equal the train
+           phase's, steps 1-4 its losses, the repeated steps 5-6 their
+           first run (TRAINER_LOSS_RTOL), the restored tensors the saved
+           ones bit for bit; the worker sees one device and no JAX; the
+           GPU is back after the fit and no process is left.
+  job      JobSubmissionClient.submit_job of `python job_main.py` with a
+           runtime_env of a working_dir (the script and a data file) and
+           env_vars: the job's num_gpus=1 task reads both and runs the
+           RMSNorm forward at the decode shape against its plain version
+           (one launch); the job must end SUCCEEDED with the task's line
+           in its logs.
 
 Then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -862,10 +882,10 @@ def phase_train():
         return loss
 
     t0 = time.perf_counter()
-    for i in range(TRAIN_WARMUP):
-        step(batches[i])
+    warm_losses = [step(batches[i]) for i in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    warm_losses = [loss.item() for loss in warm_losses]
     counters = _train_launch_counters()
     # The main path starts here: counts at 0, peak memory reset.
     for fn in counters.values():
@@ -905,7 +925,8 @@ def phase_train():
            "step_ms_all": [t * 1e3 for t in times],
            "tokens_per_s": tok_s,
            "mfu_6nd": tok_s * 6.0 * n_params / BF16_FLOPS,
-           "max_memory_allocated": peak, "losses": losses,
+           "max_memory_allocated": peak, "warmup_losses": warm_losses,
+           "losses": losses,
            "final_loss": losses[-1], "launches": launches,
            "launches_per_step": per_step, "predicted_per_step": predicted,
            "profile_one_step": profile_rec}
@@ -2009,6 +2030,478 @@ def phase_serve(slice_rec, runtime_rec, device_name):
     return counts["rmsnorm_launches"]
 
 
+# -- the trainer: llama2-1b through TorchTrainer from a GPU worker ----------
+# The loop below runs in the training worker; it lives in __main__, so the
+# runtime ships it (and the helpers and constants it names) by value.
+TRAINER_STEPS = TRAIN_WARMUP + TRAIN_STEPS + 1  # phase_train's 13 batches
+TRAINER_SAVE_AT, TRAINER_DIE_AT = 4, 6          # 1-based steps
+# Step losses of the trainer against phase_train's (the same step on the
+# same card) and against its own run before the death: measured equal,
+# bit for bit (PERF.md §6). The bound leaves room for a reduction
+# summed in another order, which moves an f32 loss of ~10.9 by ~1e-6.
+TRAINER_LOSS_RTOL = 1e-5
+
+
+def _bits_checksums(tensors) -> list:
+    """Per tensor, the sum of its bit patterns and a position-weighted sum:
+    equal for bit-equal tensors."""
+    import torch
+
+    out = []
+    for t in tensors:
+        v = t.detach().reshape(-1)
+        v = v.view(torch.int16 if v.element_size() == 2 else torch.int32)
+        v = v.to(torch.int64)
+        w = torch.arange(v.numel(), device=v.device, dtype=torch.int64)
+        out.append([int(v.sum()), int((v * (w % 65521 + 1)).sum())])
+    return out
+
+
+def _opt_tensors(opt, leaves) -> list:
+    """AdamW's moments (and step counts) in the order of `leaves`."""
+    out = []
+    for p in leaves:
+        st = opt.state[p]
+        out += [st["exp_avg"], st["exp_avg_sq"], st["step"]]
+    return out
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _trainer_loop(config):
+    """phase_train's step (llama2-1b, seed, AdamW hyperparameters and
+    batches alike) in a TorchTrainer worker: checkpointed after step
+    TRAINER_SAVE_AT, killed once after step TRAINER_DIE_AT; every step
+    reports its loss, time and kernel launches."""
+    loop_start = time.time()
+    import dataclasses
+    import os
+    import sys
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private import chaos
+    from ray_tpu_torch._private.accelerators.gpu import granted_gpu_ids
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.train import Checkpoint
+    from ray_tpu_torch.train.torch import get_device
+
+    device = get_device()
+    cfg = dataclasses.replace(configs.llama2_1b, max_seq=TRAIN_SEQ,
+                              remat=True, remat_policy="dots_nobatch")
+    counters = _train_launch_counters()
+    info = {"pid": os.getpid(), "device": str(device),
+            "loop_start_wall": loop_start,
+            "device_name": torch.cuda.get_device_name(device),
+            "device_count": torch.cuda.device_count(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "granted": granted_gpu_ids(),
+            "backend": dist.get_backend(),
+            "world_size": dist.get_world_size(),
+            "jax_or_ray_tpu_modules": sorted(
+                m for m in sys.modules if m in ("jax", "ray_tpu")
+                or m.startswith(("jax.", "ray_tpu.")))}
+    ckpt = train.get_checkpoint()
+    t0 = time.perf_counter()
+    if ckpt is None:
+        params = init_params(cfg, seed=SEED, device=device)
+        start, restored = 0, None
+    else:
+        # Each tensor back on the device type it was saved from: the
+        # params and AdamW's moments on the card, its step counts on the
+        # CPU, where phase_train's AdamW keeps them.
+        state = ckpt.to_pytree()
+        torch.cuda.synchronize()
+        restored = {"s": time.perf_counter() - t0, "step": state["step"],
+                    "bytes": _dir_bytes(ckpt.path)}
+        params, start = state["params"], state["step"]
+    leaves = _flat_params(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    if ckpt is not None:
+        opt.load_state_dict(state["opt"])
+        del state
+        t1 = time.perf_counter()
+        restored["checksums"] = _bits_checksums(
+            leaves + _opt_tensors(opt, leaves))
+        restored["checksum_s"] = time.perf_counter() - t1
+    info["setup_s"] = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    batches = torch.randint(0, cfg.vocab_size,
+                            (TRAINER_STEPS, TRAIN_BATCH, TRAIN_SEQ + 1),
+                            generator=gen, device=device)
+    n_params = sum(t.numel() for t in leaves)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    prof = train.StepProfiler(flops_per_step=6.0 * n_params * tokens)
+    for i in range(start, TRAINER_STEPS):
+        step_no = i + 1
+        for fn in counters.values():
+            fn.launches = 0
+        saved, ck = None, None
+        t0 = time.perf_counter()
+        with prof.step(tokens=tokens) as s:
+            with prof.phase("compute"):
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(params, batches[i], cfg)
+                loss.backward()
+                opt.step()
+            s.fence(loss)
+            step_s = time.perf_counter() - t0
+            launches = {n: fn.launches for n, fn in counters.items()}
+            if step_no == TRAINER_SAVE_AT:
+                with prof.phase("checkpoint"):
+                    t1 = time.perf_counter()
+                    ck = Checkpoint.from_pytree(
+                        {"params": params, "opt": opt.state_dict(),
+                         "step": step_no},
+                        os.path.join(train.get_trial_dir(),
+                                     f"step_{step_no}"))
+                    saved = {"s": time.perf_counter() - t1,
+                             "bytes": _dir_bytes(ck.path)}
+                saved["checksums"] = _bits_checksums(
+                    leaves + _opt_tensors(opt, leaves))
+        rec = prof.records()[-1]
+        metrics = {"step": step_no, "loss": loss.item(), "step_s": step_s,
+                   "wall": time.time(), "launches": launches,
+                   "first_of_attempt": i == start,
+                   "mfu": rec.get("mfu"),
+                   "peak_memory": torch.cuda.max_memory_allocated(device)}
+        if i == start:
+            metrics.update(info=info, restored=restored)
+        if saved is not None:
+            metrics["saved"] = saved
+        train.report(metrics, checkpoint=ck)
+        if (step_no == TRAINER_DIE_AT
+                and chaos.once(config["dir"], "trainer_death")):
+            # Let the trainer's poll (every 50 ms) drain this report
+            # first, then die as a preempted host does.
+            time.sleep(1.0)
+            with open(os.path.join(config["dir"], "died_at"), "w") as f:
+                f.write(repr(time.time()))
+            chaos.enable()
+            chaos.die()
+
+
+def phase_trainer(train_rec, device_name):
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     RunConfig, ScalingConfig, TorchTrainer)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="rt_trainer_")
+    rt.init(num_cpus=4)
+    try:
+        trainer = TorchTrainer(
+            _trainer_loop, train_loop_config={"dir": tmp},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(
+                name="llama2_1b", storage_path=tmp,
+                failure_config=FailureConfig(max_failures=1, backoff_s=0),
+                checkpoint_config=CheckpointConfig(num_to_keep=1)))
+        out = {}
+
+        def fit():
+            try:
+                out["result"] = trainer.fit()
+            except BaseException as e:  # noqa: BLE001 — raised below
+                out["error"] = e
+
+        t0 = time.time()
+        th = threading.Thread(target=fit, daemon=True, name="trainer-fit")
+        th.start()
+        mapped = {}
+        while th.is_alive():
+            # Every training worker, read while it lives.
+            for pid in _worker_pids().values():
+                m = _mapped(pid)
+                if m["readable"]:
+                    mapped[pid] = m
+            th.join(1.0)
+        fit_s = time.time() - t0
+        if "error" in out:
+            raise out["error"]
+        result = out["result"]
+        _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after the fit")
+        gpu_after = rt.available_resources().get("GPU", 0.0)
+        live = _runtime_workers()
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while _runtime_workers() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _runtime_workers()
+    from ray_tpu_torch._private import zygote_client
+
+    if zygote_client._shared is not None:
+        zygote_client._shared.stop()
+    deadline = time.monotonic() + 30
+    while _runtime_procs() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    died_at = None
+    if os.path.exists(os.path.join(tmp, "died_at")):
+        with open(os.path.join(tmp, "died_at")) as f:
+            died_at = float(f.read())
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    check(result.error is None, f"the fit failed: {result.error}")
+    hist = result.metrics_history
+    steps = [m["step"] for m in hist]
+    want_steps = (list(range(1, TRAINER_DIE_AT + 1))
+                  + list(range(TRAINER_SAVE_AT + 1, TRAINER_STEPS + 1)))
+    check(steps == want_steps, f"steps {steps} != {want_steps}")
+    before, after = hist[:TRAINER_DIE_AT], hist[TRAINER_DIE_AT:]
+    predicted = train_rec["predicted_per_step"]
+    bad = [(m["step"], m["launches"]) for m in hist
+           if m["launches"] != predicted]
+    ref = train_rec["warmup_losses"] + train_rec["losses"]
+    vs_train = [{"step": m["step"], "trainer": m["loss"],
+                 "phase_train": ref[m["step"] - 1],
+                 "rel": abs(m["loss"] - ref[m["step"] - 1])
+                 / abs(ref[m["step"] - 1])}
+                for m in before[:TRAINER_SAVE_AT]]
+    repeated = [{"step": a["step"], "before_death": a["loss"],
+                 "after_restore": b["loss"],
+                 "rel": abs(a["loss"] - b["loss"]) / abs(a["loss"])}
+                for a in before[TRAINER_SAVE_AT:] for b in after
+                if b["step"] == a["step"]]
+    saved = next(m["saved"] for m in hist if "saved" in m)
+    restored = after[0]["restored"]
+    timed = [m for m in hist
+             if not m["first_of_attempt"] and "saved" not in m]
+
+    def median_ms(ms):
+        return sorted(m["step_s"] for m in ms)[len(ms) // 2] * 1e3
+
+    step_ms = median_ms(timed)
+    timed_before = [m for m in timed if m in before]
+    timed_after = [m for m in timed if m in after]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = train_rec["params"]
+    breakdown = {}
+    for m in timed:
+        for k, v in m.get("train_step_breakdown", {}).items():
+            breakdown[k] = breakdown.get(k, 0.0) + v / len(timed)
+    launches = {n: sum(m["launches"][n] for m in hist) for n in predicted}
+    info = hist[0]["info"]
+    torch_pids = [p for p, m in mapped.items() if m["torch"]]
+    rec = {"phase": "trainer", "model": "llama2-1b", "dtype": "bfloat16",
+           "n_layers": train_rec["n_layers"], "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "remat_policy": train_rec["remat_policy"],
+           "scaling": {"num_workers": 1, "use_gpu": True},
+           "fit_s": fit_s, "fit_to_first_report_s": hist[0]["wall"] - t0,
+           "steps": steps, "timed_steps": [m["step"] for m in timed],
+           "step_ms_median": step_ms,
+           "step_ms_median_before_death": median_ms(timed_before),
+           "step_ms_median_after_restore": median_ms(timed_after),
+           "step_ms_all": [m["step_s"] * 1e3 for m in hist],
+           "phase_train_step_ms_median": train_rec["step_ms_median"],
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "mfu_6nd": tokens / (step_ms / 1e3) * 6.0 * n_params / BF16_FLOPS,
+           "flight_recorder": {
+               "mfu_median": sorted(m["mfu"] for m in timed)[len(timed) // 2],
+               "phase_mean_s": breakdown},
+           "checkpoint": {"write_s": saved["s"], "bytes": saved["bytes"],
+                          "restore_s": restored["s"],
+                          "checksum_s_after_restore": restored["checksum_s"],
+                          "restore_bytes": restored["bytes"],
+                          "restored_step": restored["step"],
+                          "bit_equal": saved["checksums"]
+                          == restored["checksums"]},
+           "fit_to_loop_start_s": info["loop_start_wall"] - t0,
+           "death_to_first_report_s": (after[0]["wall"] - died_at
+                                       if died_at is not None else None),
+           "death_to_loop_start_s": (
+               after[0]["info"]["loop_start_wall"] - died_at
+               if died_at is not None else None),
+           "worker_setup_s": {"first": info["setup_s"],
+                              "after_restore": after[0]["info"]["setup_s"]},
+           "peak_memory": max(m["peak_memory"] for m in hist),
+           "process_group": {"backend": info["backend"],
+                             "world_size": info["world_size"]},
+           "worker_device": {k: info[k] for k in (
+               "device", "device_name", "device_count", "visible",
+               "granted")},
+           "losses_vs_phase_train": vs_train,
+           "losses_repeated": repeated, "loss_rtol": TRAINER_LOSS_RTOL,
+           "launches": launches, "launches_per_step_predicted": predicted,
+           "mapped": {str(p): m for p, m in mapped.items()},
+           "gpu_available_after_fit": gpu_after,
+           "workers_before_shutdown": len(live),
+           "workers_after_shutdown": left,
+           "runtime_procs_after_zygote_stop": _runtime_procs()}
+    emit(rec)
+    check(not bad, f"launches per step differ from {predicted}: {bad}")
+    check(all(v["rel"] <= TRAINER_LOSS_RTOL for v in vs_train),
+          f"the trainer's losses differ from phase_train's: {vs_train}")
+    check(len(repeated) == TRAINER_DIE_AT - TRAINER_SAVE_AT
+          and all(v["rel"] <= TRAINER_LOSS_RTOL for v in repeated),
+          f"the steps run again after the restore differ: {repeated}")
+    check(all(np.isfinite(m["loss"]) for m in hist), "a loss is not finite")
+    check(rec["checkpoint"]["bit_equal"],
+          "the restored tensors differ from the saved ones")
+    check(restored["step"] == TRAINER_SAVE_AT,
+          f"restored step {restored['step']}")
+    check(died_at is not None, "the worker never died")
+    check(info["backend"] == "nccl" and info["world_size"] == 1,
+          f"process group {info['backend']} of {info['world_size']}")
+    check(info["device_count"] == 1 and info["device_name"] == device_name,
+          f"the worker sees {info['device_count']} device(s), "
+          f"{info['device_name']}")
+    check(len(info["granted"]) == 1
+          and info["visible"] == info["granted"][0]
+          and after[0]["info"]["visible"] == info["visible"],
+          f"the raylet did not confine the worker to the card it granted: "
+          f"CUDA_VISIBLE_DEVICES {info['visible']!r}, granted "
+          f"{info['granted']}, after the restart "
+          f"{after[0]['info']['visible']!r}")
+    check(info["jax_or_ray_tpu_modules"] == [],
+          f"the worker loaded {info['jax_or_ray_tpu_modules']}")
+    check(len(torch_pids) >= 2, f"no two training workers were seen on the "
+          f"card (one dies): {mapped}")
+    check(not any(m["jax"] for m in mapped.values()),
+          f"a training worker mapped JAX: {mapped}")
+    check(gpu_after == 1.0, f"GPU {gpu_after} after the fit")
+    check(not left, f"workers outlived shutdown(): {left}")
+    check(not rec["runtime_procs_after_zygote_stop"],
+          f"runtime processes outlived the zygote's stop: "
+          f"{rec['runtime_procs_after_zygote_stop']}")
+    return launches
+
+
+# -- job submission: a working_dir job runs the RMSNorm kernel in a GPU task
+JOB_MAIN = r"""
+import json, os
+import ray_tpu_torch as rt
+
+rt.init(address=os.environ["RT_GCS_ADDR"])
+
+
+@rt.remote(num_gpus=1)
+def rmsnorm_probe():
+    import torch
+    from ray_tpu_torch.ops.rmsnorm import _rmsnorm_plain, rmsnorm_cuda
+
+    with open("job_data.json") as f:  # from the job's working_dir
+        data = json.load(f)
+    gen = torch.Generator(device="cuda").manual_seed(data["seed"])
+    rows, d = data["shape"]
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    w = (torch.randn(d, generator=gen, device="cuda") * 0.1 + 1).to(
+        torch.bfloat16)
+    rmsnorm_cuda.launches = 0
+    got = rmsnorm_cuda(x, w, data["eps"])
+    launches = rmsnorm_cuda.launches
+    want = _rmsnorm_plain(x, w, data["eps"])
+
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return {"marker": os.environ.get("RT_JOB_MARKER"),
+            "token": data["token"], "launches": launches,
+            "ulp": int((ordered(got) - ordered(want)).abs().max()),
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "device": torch.cuda.get_device_name(), "pid": os.getpid()}
+
+
+print("JOB_TASK " + json.dumps(rt.get(rmsnorm_probe.remote(), timeout=600)),
+      flush=True)
+rt.shutdown()
+"""
+
+
+def phase_job(device_name):
+    import os
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.job import JobSubmissionClient
+
+    wd = tempfile.mkdtemp(prefix="rt_job_wd_")
+    with open(os.path.join(wd, "job_main.py"), "w") as f:
+        f.write(JOB_MAIN)
+    token = f"seed-{SEED}-{os.getpid()}"
+    with open(os.path.join(wd, "job_data.json"), "w") as f:
+        json.dump({"seed": SEED + 7, "shape": [8, 4096], "eps": EPS,
+                   "token": token}, f)
+    marker = "rt-job-marker"
+    rt.init(num_cpus=4)
+    try:
+        client = JobSubmissionClient(worker_mod._global_node.gcs_address)
+        try:
+            t0 = time.perf_counter()
+            sid = client.submit_job(
+                entrypoint=f"{sys.executable} job_main.py",
+                runtime_env={"working_dir": wd,
+                             "env_vars": {"RT_JOB_MARKER": marker}})
+            state = client.wait_until_finished(sid, timeout=600, poll=0.1)
+            submit_to_end_s = time.perf_counter() - t0
+            logs = client.get_job_logs(sid)
+            info = client.get_job_info(sid)
+        finally:
+            client.close()
+        _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after the job")
+    finally:
+        rt.shutdown()
+    shutil.rmtree(wd, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    while _runtime_workers() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _runtime_workers()
+    from ray_tpu_torch._private import zygote_client
+
+    if zygote_client._shared is not None:
+        zygote_client._shared.stop()
+    deadline = time.monotonic() + 30
+    while _runtime_procs() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    lines = [ln for ln in logs.splitlines() if ln.startswith("JOB_TASK ")]
+    task = json.loads(lines[-1][len("JOB_TASK "):]) if lines else {}
+    rec = {"phase": "job", "state": state,
+           "submit_to_succeeded_s": submit_to_end_s,
+           "entrypoint": info.get("entrypoint"), "task": task,
+           "log_tail": logs[-2000:], "workers_after_shutdown": left,
+           "runtime_procs_after_zygote_stop": _runtime_procs()}
+    emit(rec)
+    check(state == "SUCCEEDED", f"the job ended {state}: {logs[-2000:]}")
+    check(bool(lines), "the job's logs hold no task line")
+    check(task.get("launches") == 1,
+          f"the job's task launched rmsnorm_fwd {task.get('launches')} times")
+    check(task.get("marker") == marker and task.get("token") == token,
+          f"the task did not see its env_vars or working_dir: {task}")
+    check(task.get("ulp", 99) <= 1,
+          f"rmsnorm_fwd in the job is {task.get('ulp')} bf16 ulp off")
+    check(task.get("device") == device_name, f"the task ran on "
+          f"{task.get('device')}")
+    check(not left, f"workers outlived shutdown(): {left}")
+    check(not rec["runtime_procs_after_zygote_stop"],
+          f"runtime processes outlived the zygote's stop: "
+          f"{rec['runtime_procs_after_zygote_stop']}")
+    return task["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -2045,6 +2538,8 @@ def main() -> int:
     runtime_rec = run(phase_runtime, slice_rec, name)
     runtime_launches = runtime_rec["streamed"]["rmsnorm_launches"]
     serve_launches = run(phase_serve, slice_rec, runtime_rec, name)
+    trainer_launches = run(phase_trainer, train, name)
+    job_launches = run(phase_job, name)
     emit({"phase": "timing", "seconds": seconds})
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "ray_tpu") or m.startswith(("jax.",
@@ -2057,11 +2552,14 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/rmsnorm.cu",
         "replaces": "ray_tpu/ops/rmsnorm.py:49",
         "launches": (launches + train_launches["rmsnorm_fwd"]
-                     + runtime_launches + serve_launches),
+                     + runtime_launches + serve_launches
+                     + trainer_launches["rmsnorm_fwd"] + job_launches),
         "launches_by_path": {"serve": launches,
                              "train": train_launches["rmsnorm_fwd"],
                              "runtime_actor": runtime_launches,
-                             "serve_deployment": serve_launches},
+                             "serve_deployment": serve_launches,
+                             "trainer": trainer_launches["rmsnorm_fwd"],
+                             "job": job_launches},
         "max_abs_err": max_abs,
         "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -2080,8 +2578,10 @@ def main() -> int:
         t = train_timed[kname]
         records.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": train_launches[kname],
-            "launches_by_path": {"train": train_launches[kname]},
+            "replaces": replaces,
+            "launches": train_launches[kname] + trainer_launches[kname],
+            "launches_by_path": {"train": train_launches[kname],
+                                 "trainer": trainer_launches[kname]},
             "max_abs_err": train_err[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library"]["ms"],

@@ -134,3 +134,85 @@ class GPUAcceleratorManager(AcceleratorManager):
         """Confine this process to specific cards. Takes effect before the
         process makes its CUDA context, not after."""
         os.environ[CUDA_VISIBLE_DEVICES_ENV] = ",".join(str(i) for i in ids)
+
+
+class GPUInstances:
+    """Which cards of a node are granted to whom (upstream Ray's
+    per-instance GPU accounting, resource_instance_set.cc). The raylet's
+    counts say how much `GPU` is free; this says which card ids, so a
+    worker can be confined to its own through CUDA_VISIBLE_DEVICES.
+
+    A whole-card request takes that many free cards; a fraction shares
+    one card, the fullest that still fits. When fractions have left no
+    free card for a request that the counts admit, the least-loaded
+    cards are shared instead (the counts stay exact; only the ids
+    overlap)."""
+
+    def __init__(self, total: float, ids: Optional[List[str]] = None):
+        n = int(-(-total // 1)) if total > 0 else 0
+        ids = list(ids or [])[:n]
+        ids += [str(i) for i in range(len(ids), n)]
+        self._free = {i: 1.0 for i in ids}
+        if n and total < n:
+            self._free[ids[-1]] = total - (n - 1)
+
+    def take(self, amount: float,
+             prefer: Optional[List[str]] = None) -> List[str]:
+        if amount <= 0 or not self._free:
+            return []
+        whole = amount >= 1
+        need = 1.0 if whole else amount
+        fits = [i for i, c in self._free.items() if c + 1e-9 >= need]
+        n = int(round(amount)) if whole else 1
+        if prefer and len(prefer) == n and all(p in fits for p in prefer):
+            ids = list(prefer)
+        elif len(fits) >= n:
+            ids = (fits[:n] if whole
+                   else [min(fits, key=lambda i: self._free[i])])
+        else:
+            ids = sorted(self._free, key=lambda i: -self._free[i])[:n]
+        for i in ids:
+            self._free[i] -= need
+        return ids
+
+    def give(self, ids: List[str], amount: float) -> None:
+        need = 1.0 if amount >= 1 else amount
+        for i in ids:
+            if i in self._free:
+                self._free[i] += need
+
+    def free(self) -> dict:
+        return dict(self._free)
+
+
+# The card ids the raylet granted this worker's current task or actor.
+_GRANTED: List[str] = []
+
+
+def granted_gpu_ids() -> List[str]:
+    """The card ids this worker holds (upstream ray.get_gpu_ids); empty
+    when its task or actor asked for no GPU."""
+    return list(_GRANTED)
+
+
+def confine_process_to_gpus(ids: List[str]) -> None:
+    """Make this worker see only `ids`, as CUDA_VISIBLE_DEVICES. CUDA
+    reads the variable once, when the process makes its context, so a
+    worker whose context already serves other cards cannot be moved:
+    that raises rather than run on a card another worker holds. With no
+    ids the worker holds no card, and the variable is left as it is."""
+    import sys
+
+    _GRANTED[:] = ids
+    if not ids:
+        return
+    value = ",".join(ids)
+    if os.environ.get(CUDA_VISIBLE_DEVICES_ENV) == value:
+        return
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        raise RuntimeError(
+            f"this worker's CUDA context was made for "
+            f"CUDA_VISIBLE_DEVICES={os.environ.get(CUDA_VISIBLE_DEVICES_ENV)!r}"
+            f" and cannot move to the cards {value!r} it was granted")
+    os.environ[CUDA_VISIBLE_DEVICES_ENV] = value

@@ -35,9 +35,12 @@ import time
 from collections import defaultdict, deque
 from typing import Any, Dict, List, Optional
 
+from ray_tpu_torch._private.accelerators.gpu import (
+    GPUAcceleratorManager,
+    GPUInstances,
+)
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.ids import NodeID, ObjectID
-from ray_tpu_torch._private.not_ported import not_ported
 from ray_tpu_torch._private.object_store import ObjectStore
 from ray_tpu_torch.exceptions import ObjectStoreFullError
 from ray_tpu_torch._private.protocol import Connection, RpcServer, ServerConnection, connect, spawn
@@ -145,6 +148,12 @@ class WorkerHandle:
         # Per-process stats sampled from /proc each heartbeat.
         self.cpu_percent: float = 0.0
         self.rss_bytes: int = 0
+        # Card ids granted to the actor, lease or task this worker runs,
+        # and the last ones it was given (offered again first: a worker's
+        # CUDA context cannot move to other cards).
+        self.actor_gpu_ids: List[str] = []
+        self.lease_gpu_ids: List[str] = []
+        self.last_gpu_ids: Optional[List[str]] = None
 
 
 class Raylet:
@@ -165,6 +174,12 @@ class Raylet:
         self.host = host
         self.resources_total = dict(resources)
         self.resources_available = dict(resources)
+        # Which cards are granted: each GPU actor, lease and task is
+        # confined to its own through CUDA_VISIBLE_DEVICES.
+        self.gpus = GPUInstances(
+            self.resources_total.get("GPU", 0),
+            GPUAcceleratorManager.get_current_process_visible_accelerator_ids(),
+        )
         self.labels = labels or {}
         self.is_head = is_head
         self.store_name = f"/rttorch_{self.node_id.hex()[:12]}"
@@ -629,6 +644,8 @@ class Raylet:
                 self.resources_available[k] = (
                     self.resources_available.get(k, 0) + v
                 )
+        self._give_gpus(w.actor_gpu_ids, w.actor_resources)
+        w.actor_gpu_ids = []
         w.actor_resources = {}
         w.actor_id = None
         w.actor_bundle = None
@@ -679,9 +696,13 @@ class Raylet:
                 self.resources_available[k] = (
                     self.resources_available.get(k, 0) + v
                 )
+            self._give_gpus(w.lease_gpu_ids, w.lease_resources)
+            w.lease_gpu_ids = []
             w.lease_resources = None
         # Return an actor worker's held resources.
         if w.actor_id is not None and w.actor_resources:
+            self._give_gpus(w.actor_gpu_ids, w.actor_resources)
+            w.actor_gpu_ids = []
             bundle_key = getattr(w, "actor_bundle", None)
             bundle = self.bundles.get(bundle_key) if bundle_key else None
             if bundle is not None:
@@ -995,6 +1016,9 @@ class Raylet:
             return
         create_spec = dict(payload["create_spec"])
         create_spec.setdefault("resources", resources)
+        if resources.get("GPU", 0) > 0:
+            w.actor_gpu_ids = self._take_gpus(w, resources)
+            create_spec["gpu_ids"] = w.actor_gpu_ids
         await w.conn.push("create_actor", create_spec)
 
     @staticmethod
@@ -1021,15 +1045,34 @@ class Raylet:
         renv = payload.get("runtime_env") or {}
         for k, v in (renv.get("env_vars") or {}).items():
             env[k] = str(v)
+        cwd = None
         pkg_uris = list(renv.get("py_module_uris") or ())
         wd_uri = renv.get("working_dir_uri")
         if wd_uri or pkg_uris:
-            await self.gcs.call(
-                "job_update",
-                {"submission_id": submission_id, "state": "FAILED",
-                 "message": f"runtime_env setup failed: {not_ported('runtime_env')}"},
-            )
-            return
+            from ray_tpu_torch.runtime_env.runtime_env import (GcsKvAdapter,
+                                                               _materialize)
+
+            kv = GcsKvAdapter(self.gcs, asyncio.get_event_loop())
+            loop = asyncio.get_event_loop()
+            try:
+                extra_paths = []
+                for uri in pkg_uris:
+                    extra_paths.append(
+                        await loop.run_in_executor(None, _materialize, kv, uri)
+                    )
+                if wd_uri:
+                    cwd = await loop.run_in_executor(None, _materialize, kv, wd_uri)
+                    extra_paths.insert(0, cwd)
+                env["PYTHONPATH"] = os.pathsep.join(
+                    [*extra_paths, env.get("PYTHONPATH", "")]
+                ).rstrip(os.pathsep)
+            except Exception as e:  # noqa: BLE001
+                await self.gcs.call(
+                    "job_update",
+                    {"submission_id": submission_id, "state": "FAILED",
+                     "message": f"runtime_env setup failed: {e}"},
+                )
+                return
         env["PYTHONPATH"] = self._propagated_pythonpath(env.get("PYTHONPATH", ""))
         if renv:
             import json as _json
@@ -1053,6 +1096,7 @@ class Raylet:
                 payload["entrypoint"],
                 shell=True,
                 env=env,
+                cwd=cwd,
                 stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT,
                 start_new_session=True,
@@ -1180,6 +1224,15 @@ class Raylet:
         for k, v in resources.items():
             self.resources_available[k] = self.resources_available.get(k, 0) - v
 
+    def _take_gpus(self, w: WorkerHandle, resources) -> List[str]:
+        ids = self.gpus.take(resources.get("GPU", 0), prefer=w.last_gpu_ids)
+        w.last_gpu_ids = ids
+        return ids
+
+    def _give_gpus(self, ids: List[str], resources) -> None:
+        if ids:
+            self.gpus.give(ids, resources.get("GPU", 0))
+
     def _bundle_for(self, spec) -> Optional[dict]:
         pb = spec.get("pg_bundle")
         if not pb:
@@ -1219,6 +1272,7 @@ class Raylet:
 
     def _release_task_resources(self, spec):
         resources = spec.get("resources", {})
+        self._give_gpus(spec.pop("gpu_ids", None), resources)
         bundle = self._bundle_for(spec)
         if spec.get("pg_bundle") is not None:
             if bundle is not None:
@@ -1438,6 +1492,7 @@ class Raylet:
         self._acquire(resources)
         worker.idle = False
         worker.lease_resources = dict(resources)
+        worker.lease_gpu_ids = self._take_gpus(worker, resources)
         worker.leased_by = conn  # released if this owner disconnects
         self._metric_lease_grants += 1
         return {
@@ -1445,6 +1500,7 @@ class Raylet:
             "worker_id": worker.worker_id,
             "host": self.host,
             "port": worker.port,
+            "gpu_ids": worker.lease_gpu_ids or None,
         }
 
     def _revoke_direct_leases(self):
@@ -1468,6 +1524,8 @@ class Raylet:
             self.resources_available[k] = (
                 self.resources_available.get(k, 0) + v
             )
+        self._give_gpus(w.lease_gpu_ids, w.lease_resources)
+        w.lease_gpu_ids = []
         w.lease_resources = None
         w.leased_by = None
         w.idle = True
@@ -1842,6 +1900,10 @@ class Raylet:
                 if spec.get("sampled")
                 else None
             )
+            if resources.get("GPU", 0) > 0:
+                spec["gpu_ids"] = self._take_gpus(worker, resources)
+            else:
+                spec.pop("gpu_ids", None)
             t_disp = time.monotonic()
             q.popleft()
             self._queued_demand_add(resources, -1, spec)

@@ -361,6 +361,7 @@ class CoreClient:
         self._push_handlers = {}
         self._connected = False
         self.default_runtime_env = None  # job-level env from init()
+        self._runtime_env_cache: Dict[str, Optional[dict]] = {}
         # Direct task transport: leased workers per scheduling class
         # (direct_task_transport.cc OnWorkerIdle — keep a granted worker
         # hot and push queued tasks without re-contacting the raylet).
@@ -1369,7 +1370,18 @@ class CoreClient:
             renv = self.default_runtime_env
         if not renv:
             return None
-        raise not_ported("runtime_env")
+        if "hash" in renv:  # already resolved (job-inherited env)
+            return dict(renv)
+        import json as _json
+
+        from ray_tpu_torch.runtime_env import prepare_runtime_env
+
+        cache_key = _json.dumps(dict(renv), sort_keys=True, default=str)
+        hit = self._runtime_env_cache.get(cache_key)
+        if hit is None:
+            hit = prepare_runtime_env(renv, self)
+            self._runtime_env_cache[cache_key] = hit
+        return hit
 
     def submit_task(
         self,
@@ -1638,6 +1650,8 @@ class CoreClient:
         try:
             if len(chunk) == 1:
                 spec0 = chunk[0][0]
+                if entry.get("gpu_ids"):
+                    spec0 = dict(spec0, gpu_ids=entry["gpu_ids"])
                 rpc_t = (
                     (rpc_t0 or time.monotonic())
                     if spec0.get("sampled") and self._lc_pending else None
@@ -1749,6 +1763,8 @@ class CoreClient:
                         "outstanding": 0,
                         "last_used": time.monotonic(),
                         "key": key,
+                        # The cards the raylet granted with the lease.
+                        "gpu_ids": resp.get("gpu_ids"),
                     }
                     pool["workers"].append(w)
                     if best is None:

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 
 from ray_tpu_torch._private import serialization as ser
 from ray_tpu_torch._private import worker as worker_mod
+from ray_tpu_torch._private.accelerators.gpu import confine_process_to_gpus
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.ids import JobID, ObjectID, TaskID, object_id_for_task
 from ray_tpu_torch._private.not_ported import not_ported
@@ -183,8 +184,13 @@ class WorkerProcess:
         if renv_json:
             import json
 
+            from ray_tpu_torch.runtime_env import apply_runtime_env
+
             try:
-                raise not_ported("runtime_env")
+                await self.loop.run_in_executor(
+                    self.executor, apply_runtime_env, json.loads(renv_json),
+                    self.client,
+                )
             except Exception as e:  # noqa: BLE001
                 # Report so the raylet fails queued tasks for this env
                 # instead of respawning us in a crash loop.
@@ -389,6 +395,7 @@ class WorkerProcess:
                 # (the raylet is off the per-task path for leased tasks).
                 lc["queue_wait"] = [time.time() - qw, qw]  # rtlint: disable=RT011 — deliberate wall anchor: [start_wall, dur] lets the client stitch queue-wait onto its timeline
         try:
+            confine_process_to_gpus(spec.get("gpu_ids") or [])
             if spec.get("fn_name"):
                 # Cross-language task (reference: cross_language.py /
                 # function-descriptor calls from java/cpp frontends): the
@@ -476,6 +483,7 @@ class WorkerProcess:
     # -- actor lifecycle --------------------------------------------------
     async def _create_actor(self, payload):
         def do_create():
+            confine_process_to_gpus(payload.get("gpu_ids") or [])
             cls = self.client.fn_manager.fetch(payload["cls_key"])
             args, kwargs = self.client.deserialize_args(payload["args"])
             return cls(*args, **kwargs)

@@ -3,7 +3,7 @@ parameters, training forward and loss, and KV-cache generation.
 Counterpart of ray_tpu/models."""
 
 from ray_tpu_torch.models import configs
-from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.models.convert import params_from_jax, params_to_numpy
 from ray_tpu_torch.models.generate import decode_step, generate, init_kv_cache, prefill
 from ray_tpu_torch.models.transformer import (TransformerConfig, forward,
                                               init_params, loss_fn)
@@ -14,6 +14,7 @@ __all__ = [
     "forward",
     "loss_fn",
     "params_from_jax",
+    "params_to_numpy",
     "configs",
     "generate",
     "prefill",

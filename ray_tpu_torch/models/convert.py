@@ -50,3 +50,20 @@ def params_from_jax(tree: Dict, cfg: TransformerConfig, device=None) -> Dict:
         k: _leaf(f"layers/{k}", v, shapes["layers"][k][0], cfg.dtype, device)
         for k, v in tree["layers"].items()}
     return out
+
+
+def params_to_numpy(params: Dict) -> Dict:
+    """The inverse of `params_from_jax`: the port's parameter dictionary
+    (or any nested dict of tensors, such as a checkpoint's) as numpy
+    arrays on the host, bf16 as `ml_dtypes.bfloat16` with the same bits,
+    which is what `jax.numpy.asarray` takes."""
+    def leaf(t):
+        t = t.detach().to("cpu")
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+        return t.numpy().copy()
+
+    return {k: params_to_numpy(v) if isinstance(v, dict) else leaf(v)
+            for k, v in params.items()}

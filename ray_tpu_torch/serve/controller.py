@@ -379,6 +379,9 @@ class ServeController:
                     num_cpus=opts.pop("num_cpus", 0.1),
                     num_gpus=opts.pop("num_gpus", None),
                     resources=opts.pop("resources", None),
+                    # The replica's runtime env (env_vars, working_dir,
+                    # ...); the JAX package's controller drops it.
+                    runtime_env=opts.pop("runtime_env", None),
                     # Priority tier rides the actor options: a latency-
                     # critical deployment's pending replica may reclaim
                     # chips from lower-priority gangs.

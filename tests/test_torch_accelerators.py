@@ -241,3 +241,75 @@ def test_fake_gpu_is_scheduled_as_a_resource(no_gpu_env):
             time.sleep(0.05)
     finally:
         rt.shutdown()
+
+
+def test_gpu_instances_grant_whole_and_fractional_cards():
+    """Whole-card grants take distinct free cards; fractions share the
+    fullest card that fits; a give returns exactly what was taken."""
+    g = gpu_mod.GPUInstances(3)
+    a, b = g.take(1), g.take(2)
+    assert a == ["0"] and b == ["1", "2"]
+    g.give(b, 2)
+    assert g.take(0.5) == ["1"] and g.take(0.25) == ["1"]
+    assert g.take(0.5) == ["2"]  # "1" has only 0.25 left
+    assert g.free() == {"0": 0.0, "1": 0.25, "2": 0.5}
+    g.give(["1"], 0.25)
+    assert g.free()["1"] == 0.5
+    g.give(a, 1)
+    assert g.take(1, prefer=["0"]) == ["0"]
+    # The ids follow the raylet's own CUDA_VISIBLE_DEVICES.
+    v = gpu_mod.GPUInstances(2, ["4", "6"])
+    assert v.take(1, prefer=["6"]) == ["6"] and v.take(1) == ["4"]
+    assert gpu_mod.GPUInstances(0).take(1) == []
+
+
+def test_confine_refuses_to_move_a_made_context(monkeypatch):
+    """A worker is confined through CUDA_VISIBLE_DEVICES; once its CUDA
+    context exists it cannot be moved to other cards."""
+    import types
+
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    gpu_mod.confine_process_to_gpus(["1"])
+    assert os.environ["CUDA_VISIBLE_DEVICES"] == "1"
+    assert gpu_mod.granted_gpu_ids() == ["1"]
+    made = types.SimpleNamespace(
+        cuda=types.SimpleNamespace(is_initialized=lambda: True))
+    monkeypatch.setitem(sys.modules, "torch", made)
+    gpu_mod.confine_process_to_gpus(["1"])  # the same cards: no move
+    with pytest.raises(RuntimeError, match="cannot move"):
+        gpu_mod.confine_process_to_gpus(["0"])
+    gpu_mod.confine_process_to_gpus([])
+    assert gpu_mod.granted_gpu_ids() == []
+    assert os.environ["CUDA_VISIBLE_DEVICES"] == "1"
+
+
+def test_gpu_actors_and_tasks_see_only_their_own_cards(no_gpu_env):
+    """On a node with two (faked) cards, the raylet confines each GPU
+    actor and task to the cards it grants: two actors see different
+    ids, and a task run after one actor dies sees the freed card."""
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=4, num_gpus=2)
+    try:
+        @rt.remote(num_gpus=1)
+        class Holder:
+            def cards(self):
+                from ray_tpu_torch._private.accelerators.gpu import (
+                    granted_gpu_ids)
+                return os.environ.get("CUDA_VISIBLE_DEVICES"), granted_gpu_ids()
+
+        @rt.remote(num_gpus=1)
+        def task_cards():
+            return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+        h0, h1 = Holder.remote(), Holder.remote()
+        (v0, g0), (v1, g1) = rt.get([h0.cards.remote(), h1.cards.remote()],
+                                    timeout=60)
+        assert sorted([v0, v1]) == ["0", "1"]
+        assert [v0] == g0 and [v1] == g1
+        ref = task_cards.remote()
+        assert rt.wait([ref], timeout=2)[0] == []
+        rt.kill(h0)
+        assert rt.get(ref, timeout=60) == v0
+    finally:
+        rt.shutdown()

@@ -2,8 +2,9 @@
 plain versions, one training step through the kernels against the same
 step on the CPU, the engine on the card, and the runtime core's GPU
 resource (detection, and a num_gpus=1 actor that launches the RMSNorm
-kernel in its own worker process), and llm_deployment through serve.run
-from a num_gpus=1 replica. Each test skips without a
+kernel in its own worker process), llm_deployment through serve.run
+from a num_gpus=1 replica, a one-worker TorchTrainer on an NCCL group of
+one, and a checkpoint of CUDA bf16 tensors. Each test skips without a
 CUDA device. This file imports no JAX, so on a machine with a card and
 without JAX it runs on its own:
 
@@ -27,6 +28,7 @@ within rtol=atol=2e-3 and a relative L2 error of at most 1e-3.
 
 import dataclasses
 import os
+import time
 
 import pytest
 import torch
@@ -441,3 +443,143 @@ def test_llm_deployment_on_card_equals_generate(cuda_device, monkeypatch):
     assert unary == refs
     assert streamed == refs
     assert held == float(torch.cuda.device_count()) - 1.0
+
+
+def _tiny_bf16_loop(config):
+    """Two steps of a tiny config in bf16 on the worker's card, each
+    kernel's launches counted; the process group as the worker sees it."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.ops.flash_attention import (flash_bwd_dkv_cuda,
+                                                   flash_bwd_dq_cuda,
+                                                   flash_fwd_cuda)
+    from ray_tpu_torch.ops.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
+    from ray_tpu_torch.train.torch import get_device
+
+    device = get_device()
+    # head_dim 64: a width the flash kernels take.
+    cfg = dataclasses.replace(configs.tiny, d_model=256, n_heads=4,
+                              n_kv_heads=4, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=device)
+    leaves = [v for k, v in sorted(params.items()) if k != "layers"]
+    leaves += [v for _, v in sorted(params["layers"].items())]
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=1e-4, weight_decay=1e-4)
+    counters = [rmsnorm_cuda, rmsnorm_bwd_cuda, flash_fwd_cuda,
+                flash_bwd_dq_cuda, flash_bwd_dkv_cuda]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2, 65), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(1))
+    for step in range(2):
+        for c in counters:
+            c.launches = 0
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, tokens[step], cfg)
+        loss.backward()
+        grads = train.allreduce_gradients([t.grad for t in leaves])
+        for t, g in zip(leaves, grads):
+            t.grad = g
+        opt.step()
+        train.report({"step": step, "loss": loss.item(),
+                      "launches": [c.launches for c in counters],
+                      "backend": dist.get_backend(),
+                      "world": dist.get_world_size(), "device": str(device),
+                      "devices": torch.cuda.device_count(),
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+
+def _fit_tiny_on_card(monkeypatch, tmp_path, backend_config=None):
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import config
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    monkeypatch.delenv("RT_NUM_GPUS", raising=False)
+    config._config = None
+    rt.init(num_cpus=2)
+    try:
+        result = TorchTrainer(
+            _tiny_bf16_loop,
+            backend_config=backend_config,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="gpu", storage_path=str(tmp_path)),
+        ).fit()
+        deadline = time.monotonic() + 60
+        while rt.available_resources().get("GPU", 0.0) != \
+                float(torch.cuda.device_count()):
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+    finally:
+        rt.shutdown()
+        config._config = None
+    assert result.error is None, result.error
+    return result.metrics_history
+
+
+def test_torch_trainer_on_card_with_nccl(cuda_device, monkeypatch, tmp_path):
+    """A one-worker TorchTrainer with ScalingConfig(use_gpu=True) trains on
+    the card over an NCCL group of one, its kernels launched in the
+    worker, and hands the GPU back when the fit ends."""
+    hist = _fit_tiny_on_card(monkeypatch, tmp_path)
+    assert [m["step"] for m in hist] == [0, 1]
+    L = configs.tiny.n_layers
+    for m in hist:
+        assert m["backend"] == "nccl" and m["world"] == 1
+        assert m["device"] == "cuda:0"
+        # Without remat: two norms a layer and the final one forward,
+        # each backward once; attention once a layer.
+        assert m["launches"] == [2 * L + 1, 2 * L + 1, L, L, L]
+        assert torch.isfinite(torch.tensor(m["loss"]))
+
+
+def test_torch_trainer_on_card_with_gloo(cuda_device, monkeypatch, tmp_path):
+    """ScalingConfig(use_gpu=True) with TorchConfig(backend="gloo"): the
+    worker still computes on the card it holds, and the raylet has
+    confined it to that one card."""
+    from ray_tpu_torch.train import TorchConfig
+
+    hist = _fit_tiny_on_card(monkeypatch, tmp_path,
+                             TorchConfig(backend="gloo"))
+    assert [m["step"] for m in hist] == [0, 1]
+    L = configs.tiny.n_layers
+    first_card = (os.environ.get("CUDA_VISIBLE_DEVICES") or "0").split(",")[0]
+    for m in hist:
+        assert m["backend"] == "gloo" and m["world"] == 1
+        assert m["device"] == "cuda:0"
+        assert m["devices"] == 1 and m["visible"] == first_card
+        assert m["launches"] == [2 * L + 1, 2 * L + 1, L, L, L]
+        assert torch.isfinite(torch.tensor(m["loss"]))
+
+
+def test_checkpoint_round_trip_of_cuda_bf16_tensors(cuda_device, tmp_path):
+    """Checkpoint.from_pytree of CUDA bf16 tensors and AdamW-like state
+    comes back on the card, bit for bit; AsyncCheckpointer's snapshot is
+    taken before save() returns."""
+    from ray_tpu_torch.train import AsyncCheckpointer, Checkpoint
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"params": {"w": torch.randn(128, 64, generator=g,
+                                        device=cuda_device)
+                       .to(torch.bfloat16),
+                       "b": torch.randn(64, generator=g, device=cuda_device)},
+            "opt": [torch.zeros(3, device=cuda_device), torch.tensor(4.0)],
+            "step": 4}
+    back = Checkpoint.from_pytree(tree, str(tmp_path / "c")).to_pytree()
+    assert back["params"]["w"].device.type == "cuda"
+    assert back["params"]["w"].dtype == torch.bfloat16
+    assert torch.equal(back["params"]["w"].view(torch.int16),
+                       tree["params"]["w"].view(torch.int16))
+    assert torch.equal(back["params"]["b"], tree["params"]["b"])
+    assert back["opt"][1].device.type == "cpu" and back["step"] == 4
+    want = tree["params"]["b"].cpu()
+    ck = AsyncCheckpointer()
+    c = ck.save(str(tmp_path / "a"), tree)
+    tree["params"]["b"].add_(1.0)
+    ck.wait()
+    got = Checkpoint(c.path).to_pytree(device="cpu")
+    assert torch.equal(got["params"]["b"], want)

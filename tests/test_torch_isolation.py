@@ -182,6 +182,58 @@ def test_serve_control_plane_module_imports_no_torch(module):
     assert proc.stdout.strip() == "[]"
 
 
+_TRAIN_MODULES = ["ray_tpu_torch.runtime_env",
+                  "ray_tpu_torch.runtime_env.runtime_env",
+                  "ray_tpu_torch.job", "ray_tpu_torch.train"] + [
+    f"ray_tpu_torch.train.{m}" for m in (
+        "backend", "backend_executor", "checkpoint", "config",
+        "data_config", "flight_recorder", "session", "sklearn", "storage",
+        "torch", "trainer", "worker_group")]
+
+
+@pytest.mark.parametrize("module", _TRAIN_MODULES)
+def test_train_job_and_runtime_env_modules_import_no_jax(module):
+    """runtime_env, job and train (and each train module) load neither JAX
+    nor ray_tpu, and no torch: importing them must not make a CUDA context
+    possible before the zygote forks; the loops import torch where they
+    run."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'ray_tpu')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_train_job_and_runtime_env_leave_torch_unloaded():
+    code = ("import sys\n"
+            "import ray_tpu_torch.train, ray_tpu_torch.job, "
+            "ray_tpu_torch.runtime_env\n"
+            "print('torch' in sys.modules, len(ray_tpu_torch.train.__all__))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "38"]
+
+
+def test_gpu_trainer_refuses_to_fall_back_to_cpu(monkeypatch):
+    """ScalingConfig(use_gpu=True) makes an NCCL group, which needs a
+    card: without one the worker's group init raises, it does not train
+    on the CPU."""
+    from ray_tpu_torch.train import ScalingConfig, TorchConfig
+    from ray_tpu_torch.train.torch import _torch_process_group_init
+
+    class Group:
+        resources_per_worker = ScalingConfig(use_gpu=True).worker_resources()
+
+    assert TorchConfig().resolved_backend(Group()) == "nccl"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        _torch_process_group_init(0, "tcp://127.0.0.1:1", 1, "nccl", 5.0,
+                                  [0])
+
+
 _SERVE_PROCS = r"""
 import json, os, sys, urllib.request
 import ray_tpu_torch as rt

@@ -6,7 +6,8 @@ tests/test_serve.py: function and class deployments, two replicas both
 used, composition through handles and nested `.bind()` (in containers
 too), duplicate names made unique, a shared application deployed once,
 status and delete, redeploy with another function, with array arguments
-and with nothing changed, and the error for a buried application. Each
+and with nothing changed, the error for a buried application, and a
+runtime_env in `ray_actor_options` reaching the replica. Each
 side prints one `RESULT` line; the two must be equal.
 """
 
@@ -224,6 +225,14 @@ def scenarios():
     except ValueError as e:
         out["buried"] = [type(e).__name__, "Application" in str(e),
                          "buried" in str(e)]
+    @serve.deployment(ray_actor_options={
+        "runtime_env": {"env_vars": {"RT_SERVE_ENV": "replica-env"}}})
+    class EnvReader:
+        def __call__(self):
+            return os.environ.get("RT_SERVE_ENV")
+
+    out["runtime_env"] = serve.run(EnvReader.bind(), name="renv") \
+        .remote().result(timeout=60)
     out["final_status"] = serve.status()
     return out
 
@@ -271,8 +280,17 @@ SCENARIOS = ["function", "class", "two_replicas_used", "composition_by_name",
 @pytest.mark.parametrize("key", SCENARIOS)
 def test_serve_scenario_matches_the_jax_package(results, key):
     ref, out = results
-    assert set(out) == set(ref) == set(SCENARIOS)
+    assert set(out) == set(ref) == set(SCENARIOS) | {"runtime_env"}
     assert out[key] == ref[key]
+
+
+def test_runtime_env_in_actor_options_reaches_the_replica(results):
+    """The port's controller passes `ray_actor_options["runtime_env"]` to
+    the replica; the JAX package's drops it (ROADMAP §C), so there the
+    replica reads nothing."""
+    ref, out = results
+    assert out["runtime_env"] == "replica-env"
+    assert ref["runtime_env"] is None
 
 
 def test_serve_scenarios_give_the_expected_values(results):
