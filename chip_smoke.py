@@ -99,6 +99,32 @@ prints no result line:
            RMSNorm forward at the decode shape against its plain version
            (one launch); the job must end SUCCEEDED with the task's line
            in its logs.
+  tune     (a) a Tuner of tune.with_resources(fn, {"CPU": 1, "GPU": 1})
+           trials, one at a time, under ASHA (grace 2, reduction 2,
+           max_t 6), over lr in (1e-4, 0, 3e-4, 1e-5): each trial trains
+           the train phase's model (llama2-1b, full width and depth, bf16,
+           seed 0, the same batches and AdamW) on the card and reports
+           its loss and launches every step; the next trial is suggested
+           only once the GPU is back at 1.0. The lr 1e-4 trial must repeat
+           the train phase's losses bit for bit, ASHA must stop a trial
+           before max_t, and every step must launch what the train phase
+           predicts. (b) a Tuner over TorchTrainer(ScalingConfig(
+           num_workers=1, use_gpu=True)) sweeping lr in (1e-4, 3e-4) with
+           llama2-1b at full width, 2 layers: both trials train on the
+           card through the gang's worker, the trial actors (one CPU
+           each) never map the CUDA driver, and a best result is chosen.
+  dag      a compiled two-stage DAG: a num_gpus=1 actor runs the RMSNorm
+           forward at 8 x 4096 bf16, a CPU actor checksums its rows; 200
+           execute() calls, each within 1 bf16 ulp of the plain version,
+           as many kernel launches as executes, execute() p50 beside the
+           same chain through actor calls (host time), no channel segment
+           left after teardown() and the GPU back at 1.0.
+  cluster  cluster_utils.Cluster: a head with 2 CPUs and a node with
+           num_gpus=1; a num_gpus=1 task must land on the GPU node and
+           runs the RMSNorm forward at 8192 x 2048, returning 64 MiB
+           that the driver pulls across the raylets (GB/s printed; the
+           bytes' digest equal, within 1 bf16 ulp of the plain version);
+           after remove_node() the GPU leaves cluster_resources().
 
 Then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -852,6 +878,15 @@ def _profile_step(step, tokens) -> dict:
                           for ms, n, k in sorted(other, reverse=True)[:10]]}
 
 
+def _predicted_launches(L: int) -> dict:
+    """Kernel launches of one training step of an L-layer model, from the
+    code: every layer's two norms and its attention run forward once and
+    again when dots_nobatch recomputes the layer in the backward; the
+    final norm runs once; each backward runs once."""
+    return {"rmsnorm_fwd": 2 * L + 1 + 2 * L, "rmsnorm_bwd": 2 * L + 1,
+            "flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+
+
 def phase_train():
     import torch
 
@@ -901,11 +936,7 @@ def phase_train():
     launches = {n: fn.launches for n, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     L = cfg.n_layers
-    # Per step, from the code: every layer's two norms and its attention
-    # run forward once and again when dots_nobatch recomputes the layer in
-    # the backward; the final norm runs once; each backward runs once.
-    predicted = {"rmsnorm_fwd": 2 * L + 1 + 2 * L, "rmsnorm_bwd": 2 * L + 1,
-                 "flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    predicted = _predicted_launches(L)
     per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
     profile_rec = _profile_step(step, batches[-1])
     step_ms = sorted(times)[len(times) // 2] * 1e3
@@ -1136,6 +1167,25 @@ def _runtime_workers() -> list:
             if not (p[1] == os.getpid() and "_private.zygote" in p[2])]
 
 
+def _stop_runtime() -> tuple:
+    """After a runtime's shutdown: wait for its workers to exit, stop the
+    zygote this process started, and return what is left of both. The
+    zygote serves every runtime this process starts and stops at exit;
+    stopping it now leaves no process of the phase behind."""
+    deadline = time.monotonic() + 30
+    while _runtime_workers() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _runtime_workers()
+    from ray_tpu_torch._private import zygote_client
+
+    if zygote_client._shared is not None:
+        zygote_client._shared.stop()
+    deadline = time.monotonic() + 30
+    while _runtime_procs() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    return left, _runtime_procs()
+
+
 def _runtime_sanity(rt) -> dict:
     from ray_tpu_torch.exceptions import TaskError
 
@@ -1357,11 +1407,7 @@ def _runtime_parity_and_resource(rt) -> dict:
     from ray_tpu_torch.models import configs, init_params
     from ray_tpu_torch.models.generate import generate
 
-    deadline = time.monotonic() + 120
-    while rt.available_resources().get("GPU", 0.0) != 1.0:
-        check(time.monotonic() < deadline, "the serving actor's GPU was "
-              "never released")
-        time.sleep(0.1)
+    _wait_gpu(rt, 1.0, "the serving actor's GPU was never released")
     seed, new = SEED + 4, 8
     engine_kw = {"num_slots": 4, "max_len": 256, "prefill_chunk": 64,
                  "kv_mode": "paged", "page_size": 16}
@@ -1396,10 +1442,7 @@ def _runtime_parity_and_resource(rt) -> dict:
     stayed_pending = ready == []
     rt.kill(srv)
     ran_on = rt.get(pending_ref, timeout=600)
-    deadline = time.monotonic() + 120
-    while rt.available_resources().get("GPU", 0.0) != 1.0:
-        check(time.monotonic() < deadline, "the GPU was never released")
-        time.sleep(0.1)
+    _wait_gpu(rt, 1.0, "the GPU was never released")
     rec = {"parity_model": "llama3-8b, 2 layers", "parity_dtype": "float32",
            "parity_prompt_lengths": [len(p) for p in prompts],
            "parity_same_weights": same_weights,
@@ -1443,21 +1486,9 @@ def phase_runtime(slice_rec, device_name):
         rec["workers_before_shutdown"] = len(live)
     finally:
         rt.shutdown()
-    deadline = time.monotonic() + 30
-    while _runtime_workers() and time.monotonic() < deadline:
-        time.sleep(0.2)
-    left = _runtime_workers()
-    # The zygote serves every runtime this process starts and stops at
-    # exit; stop it now so the phase leaves no process behind.
-    from ray_tpu_torch._private import zygote_client
-
-    if zygote_client._shared is not None:
-        zygote_client._shared.stop()
-    deadline = time.monotonic() + 30
-    while _runtime_procs() and time.monotonic() < deadline:
-        time.sleep(0.2)
+    left, procs = _stop_runtime()
     rec["workers_after_shutdown"] = left
-    rec["runtime_procs_after_zygote_stop"] = _runtime_procs()
+    rec["runtime_procs_after_zygote_stop"] = procs
     emit(rec)
     check(live, "no worker process was found while the runtime ran")
     check(not left, f"workers outlived shutdown(): {left}")
@@ -1848,10 +1879,27 @@ def _serve_parity(replica_cls) -> dict:
     return rec
 
 
+GPU_SETTLE_S = 1.5  # three of the raylet's heartbeats
+
+
 def _wait_gpu(rt, want: float, what: str) -> None:
+    """Wait until the GCS's view of the GPU reads `want` and holds it for
+    GPU_SETTLE_S. Removing a placement group (or killing an actor) credits
+    its card in the GCS's view at once, while the raylet still counts it
+    held until the worker is gone; the raylet's next heartbeat (every
+    0.5 s) takes the early credit back (ROADMAP §C). A view that holds
+    across three heartbeats is the raylet's own."""
     deadline = time.monotonic() + 120
-    while rt.available_resources().get("GPU", 0.0) != want:
-        check(time.monotonic() < deadline, what)
+    since = None
+    while True:
+        now = time.monotonic()
+        if rt.available_resources().get("GPU", 0.0) != want:
+            since = None
+        elif since is None:
+            since = now
+        elif now - since >= GPU_SETTLE_S:
+            return
+        check(now < deadline, what)
         time.sleep(0.1)
 
 
@@ -1968,17 +2016,7 @@ def phase_serve(slice_rec, runtime_rec, device_name):
         gpu_after = rt.available_resources().get("GPU", 0.0)
     finally:
         rt.shutdown()
-    deadline = time.monotonic() + 30
-    while _runtime_workers() and time.monotonic() < deadline:
-        time.sleep(0.2)
-    left = _runtime_workers()
-    from ray_tpu_torch._private import zygote_client
-
-    if zygote_client._shared is not None:
-        zygote_client._shared.stop()
-    deadline = time.monotonic() + 30
-    while _runtime_procs() and time.monotonic() < deadline:
-        time.sleep(0.2)
+    left, procs = _stop_runtime()
     reasons = {}
     for pm in postmortems:
         r = str(pm.get("reason", "")).split(":")[0]
@@ -2002,7 +2040,7 @@ def phase_serve(slice_rec, runtime_rec, device_name):
            "mapped": mapped, "workers_before_shutdown": len(live),
            "gpu_available_after_serve_shutdown": gpu_after,
            "workers_after_shutdown": left,
-           "runtime_procs_after_zygote_stop": _runtime_procs(),
+           "runtime_procs_after_zygote_stop": procs,
            "in_process_slice": {k: slice_rec[k] for k in (
                "output_tok_per_s", "ttft_p50_s", "ttft_p99_s")},
            "runtime_actor": {k: runtime_rec[k][m] for k, m in (
@@ -2244,17 +2282,7 @@ def phase_trainer(train_rec, device_name):
         live = _runtime_workers()
     finally:
         rt.shutdown()
-    deadline = time.monotonic() + 30
-    while _runtime_workers() and time.monotonic() < deadline:
-        time.sleep(0.2)
-    left = _runtime_workers()
-    from ray_tpu_torch._private import zygote_client
-
-    if zygote_client._shared is not None:
-        zygote_client._shared.stop()
-    deadline = time.monotonic() + 30
-    while _runtime_procs() and time.monotonic() < deadline:
-        time.sleep(0.2)
+    left, procs = _stop_runtime()
     died_at = None
     if os.path.exists(os.path.join(tmp, "died_at")):
         with open(os.path.join(tmp, "died_at")) as f:
@@ -2347,7 +2375,7 @@ def phase_trainer(train_rec, device_name):
            "gpu_available_after_fit": gpu_after,
            "workers_before_shutdown": len(live),
            "workers_after_shutdown": left,
-           "runtime_procs_after_zygote_stop": _runtime_procs()}
+           "runtime_procs_after_zygote_stop": procs}
     emit(rec)
     check(not bad, f"launches per step differ from {predicted}: {bad}")
     check(all(v["rel"] <= TRAINER_LOSS_RTOL for v in vs_train),
@@ -2466,24 +2494,14 @@ def phase_job(device_name):
     finally:
         rt.shutdown()
     shutil.rmtree(wd, ignore_errors=True)
-    deadline = time.monotonic() + 30
-    while _runtime_workers() and time.monotonic() < deadline:
-        time.sleep(0.2)
-    left = _runtime_workers()
-    from ray_tpu_torch._private import zygote_client
-
-    if zygote_client._shared is not None:
-        zygote_client._shared.stop()
-    deadline = time.monotonic() + 30
-    while _runtime_procs() and time.monotonic() < deadline:
-        time.sleep(0.2)
+    left, procs = _stop_runtime()
     lines = [ln for ln in logs.splitlines() if ln.startswith("JOB_TASK ")]
     task = json.loads(lines[-1][len("JOB_TASK "):]) if lines else {}
     rec = {"phase": "job", "state": state,
            "submit_to_succeeded_s": submit_to_end_s,
            "entrypoint": info.get("entrypoint"), "task": task,
            "log_tail": logs[-2000:], "workers_after_shutdown": left,
-           "runtime_procs_after_zygote_stop": _runtime_procs()}
+           "runtime_procs_after_zygote_stop": procs}
     emit(rec)
     check(state == "SUCCEEDED", f"the job ended {state}: {logs[-2000:]}")
     check(bool(lines), "the job's logs hold no task line")
@@ -2500,6 +2518,647 @@ def phase_job(device_name):
           f"runtime processes outlived the zygote's stop: "
           f"{rec['runtime_procs_after_zygote_stop']}")
     return task["launches"]
+
+
+# -- tune: llama2-1b trials under ASHA, and a Tuner over TorchTrainer ---------
+# Part (a) trains phase_train's model in Tune trials that hold the card
+# (tune.with_resources), one at a time (max_concurrent_trials=1), under
+# ASHA; part (b) sweeps a TorchTrainer whose gang holds the card.
+TUNE_LRS = (1e-4, 0.0, 3e-4, 1e-5)  # 1e-4 is phase_train's
+TUNE_MAX_T = 6
+TUNE_B_LRS = (1e-4, 3e-4)
+TUNE_B_LAYERS, TUNE_B_STEPS = 2, 3
+
+
+def _tune_trial(config):
+    """phase_train's step (llama2-1b, seed, AdamW hyperparameters but the
+    learning rate, batches) in a Tune trial on the card; reports its loss,
+    time and kernel launches every step."""
+    entry_wall = time.time()
+    import dataclasses
+    import os
+    import sys
+    import threading
+
+    import torch
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch._private.accelerators.gpu import granted_gpu_ids
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+
+    cfg = dataclasses.replace(configs.llama2_1b, max_seq=TRAIN_SEQ,
+                              remat=True, remat_policy="dots_nobatch")
+    counters = _train_launch_counters()
+    imports_s = time.time() - entry_wall
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED)  # the card, or it raises
+    leaves = _flat_params(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=config["lr"], betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    batches = torch.randint(0, cfg.vocab_size,
+                            (TRAINER_STEPS, TRAIN_BATCH, TRAIN_SEQ + 1),
+                            generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    info = {"pid": os.getpid(), "entry_wall": entry_wall,
+            "imports_s": imports_s, "setup_s": time.perf_counter() - t0,
+            "thread": threading.current_thread().name,
+            "device_name": torch.cuda.get_device_name(),
+            "device_count": torch.cuda.device_count(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "granted": granted_gpu_ids(),
+            "jax_or_ray_tpu_modules": sorted(
+                m for m in sys.modules if m in ("jax", "ray_tpu")
+                or m.startswith(("jax.", "ray_tpu.")))}
+    for i in range(TUNE_MAX_T):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, batches[i], cfg)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        metrics = {"loss": loss.item(), "step_s": time.perf_counter() - t0,
+                   "wall": time.time(),
+                   "launches": {n: fn.launches for n, fn in counters.items()},
+                   "peak_memory": torch.cuda.max_memory_allocated()}
+        if i == 0:
+            metrics["info"] = info
+        tune.report(metrics)
+
+
+def _tune_searchers(rt):
+    """A grid searcher that suggests the next trial only once the GPU is
+    back at 1.0 (the finished trial's worker gone), and an ASHA that
+    records its decisions; both record when, for the phase's figures."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.tune.search import PAUSED
+
+    class GPUGate(tune.Searcher):
+        def __init__(self, space):
+            self.inner = tune.BasicVariantGenerator(space)
+            self.launched, self.ended, self.gpu_back = {}, {}, []
+            self._last_end = None
+
+        def suggest(self, trial_id):
+            if rt.available_resources().get("GPU", 0.0) != 1.0:
+                return PAUSED
+            if self._last_end is not None:
+                self.gpu_back.append(time.time() - self._last_end)
+                self._last_end = None
+            config = self.inner.suggest(trial_id)
+            if config is not None:
+                self.launched[trial_id] = time.time()
+            return config
+
+        def on_trial_complete(self, trial_id, result=None):
+            self.ended[trial_id] = self._last_end = time.time()
+
+    class RecordingASHA(tune.ASHAScheduler):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.decisions = {}
+
+        def on_result(self, trial_id, result):
+            d = super().on_result(trial_id, result)
+            self.decisions.setdefault(trial_id, []).append(
+                [result.get("training_iteration"), d])
+            return d
+
+    return GPUGate, RecordingASHA
+
+
+def _tune_trainer_loop(config):
+    """phase_train's step at TUNE_B_LAYERS layers in a TorchTrainer
+    worker; every report carries all the steps so far."""
+    loop_start = time.time()
+    import dataclasses
+    import os
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.train.torch import get_device
+
+    device = get_device()
+    cfg = dataclasses.replace(configs.llama2_1b, n_layers=TUNE_B_LAYERS,
+                              max_seq=TRAIN_SEQ, remat=True,
+                              remat_policy="dots_nobatch")
+    counters = _train_launch_counters()
+    params = init_params(cfg, seed=SEED, device=device)
+    leaves = _flat_params(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=config["lr"], betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    batches = torch.randint(0, cfg.vocab_size,
+                            (TRAINER_STEPS, TRAIN_BATCH, TRAIN_SEQ + 1),
+                            generator=gen, device=device)
+    losses, launches, step_ms = [], [], []
+    for i in range(TUNE_B_STEPS):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, batches[i], cfg)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({n: fn.launches for n, fn in counters.items()})
+        train.report({"step": i + 1, "loss": losses[-1], "losses": losses,
+                      "launches_all": launches, "step_ms_all": step_ms,
+                      "loop_start_wall": loop_start, "pid": os.getpid(),
+                      "device_name": torch.cuda.get_device_name(device),
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+
+def _tune_a(rt, train_rec, device_name, tmp) -> dict:
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig
+
+    GPUGate, RecordingASHA = _tune_searchers(rt)
+    gate = GPUGate({"lr": tune.grid_search(list(TUNE_LRS))})
+    asha = RecordingASHA(metric="loss", mode="min", grace_period=2,
+                         reduction_factor=2, max_t=TUNE_MAX_T)
+    t0 = time.time()
+    grid = tune.Tuner(
+        tune.with_resources(_tune_trial, {"CPU": 1, "GPU": 1}),
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    search_alg=gate, scheduler=asha,
+                                    max_concurrent_trials=1),
+        run_config=RunConfig(name="tune_a", storage_path=tmp)).fit()
+    fit_s = time.time() - t0
+    _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after the sweep")
+    predicted = train_rec["predicted_per_step"]
+    ref = train_rec["warmup_losses"] + train_rec["losses"]
+    trials = []
+    for trial, res in zip(grid._trials, grid):
+        hist = res.metrics_history
+        info = hist[0]["info"] if hist else {}
+        losses = [m["loss"] for m in hist]
+        stop_at = next((t for t, d in asha.decisions.get(trial.trial_id, [])
+                        if d == "STOP"), None)
+        times = sorted(m["step_s"] for m in hist[1:])
+        trials.append({
+            "lr": trial.config["lr"], "state": trial.state,
+            "error": str(res.error)[:2000] if res.error else None,
+            "steps": len(hist), "asha_stop_at": stop_at,
+            "asha_decisions": asha.decisions.get(trial.trial_id),
+            "losses": losses,
+            "setup_s": (hist[0]["wall"] - gate.launched[trial.trial_id]
+                        if hist else None),
+            "launch_to_function_s": (info["entry_wall"]
+                                     - gate.launched[trial.trial_id]
+                                     if info else None),
+            "function_imports_s": info.get("imports_s"),
+            "function_setup_s": info.get("setup_s"),
+            "first_step_ms": hist[0]["step_s"] * 1e3 if hist else None,
+            "step_ms_median": (times[len(times) // 2] * 1e3
+                               if times else None),
+            "step_ms_all": [m["step_s"] * 1e3 for m in hist],
+            "launches_per_step": [m["launches"] for m in hist],
+            "peak_memory": max((m["peak_memory"] for m in hist), default=0),
+            "worker": {k: info.get(k) for k in (
+                "pid", "thread", "device_name", "device_count", "visible",
+                "granted", "jax_or_ray_tpu_modules")},
+            "bit_equal_to_phase_train": (losses == ref[:len(losses)]
+                                         if trial.config["lr"] == 1e-4
+                                         else None)})
+    launches = {n: sum(m["launches"][n] for r in grid
+                       for m in r.metrics_history) for n in predicted}
+    rec = {"model": "llama2-1b", "dtype": "bfloat16",
+           "n_layers": train_rec["n_layers"], "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "remat_policy": train_rec["remat_policy"],
+           "trial_resources": {"CPU": 1, "GPU": 1},
+           "scheduler": {"name": "ASHA", "grace_period": 2,
+                         "reduction_factor": 2, "max_t": TUNE_MAX_T},
+           "fit_s": fit_s, "trials": trials,
+           "gpu_back_s_between_trials": gate.gpu_back,
+           "phase_train_step_ms_median": train_rec["step_ms_median"],
+           "launches": launches, "predicted_per_step": predicted,
+           "best_lr": next(t["lr"] for t, r in zip(trials, grid)
+                           if r is grid.get_best_result())}
+    for t in trials:
+        check(t["error"] is None, f"trial lr={t['lr']} failed: {t['error']}")
+        check(all(lp == predicted for lp in t["launches_per_step"]),
+              f"trial lr={t['lr']}: launches per step "
+              f"{t['launches_per_step']} != {predicted}")
+        check(all(np.isfinite(t["losses"])), f"trial lr={t['lr']}: a loss "
+              f"is not finite: {t['losses']}")
+        w = t["worker"]
+        check(w["device_name"] == device_name and w["device_count"] == 1
+              and len(w["granted"]) == 1 and w["visible"] == w["granted"][0],
+              f"trial lr={t['lr']} was not confined to the card granted: {w}")
+        check(w["jax_or_ray_tpu_modules"] == [],
+              f"trial lr={t['lr']} loaded {w['jax_or_ray_tpu_modules']}")
+    first = next(t for t in trials if t["lr"] == 1e-4)
+    check(first["steps"] == TUNE_MAX_T and first["bit_equal_to_phase_train"],
+          f"the lr 1e-4 trial's losses {first['losses']} differ from "
+          f"phase_train's {ref[:TUNE_MAX_T]}")
+    check(any(t["asha_stop_at"] is not None and t["asha_stop_at"] < TUNE_MAX_T
+              for t in trials), f"ASHA stopped no trial before max_t: "
+          f"{[t['asha_decisions'] for t in trials]}")
+    check(len(gate.gpu_back) == len(TUNE_LRS),
+          f"the GPU came back {len(gate.gpu_back)} times after "
+          f"{len(TUNE_LRS)} trials")
+    return rec
+
+
+def _tune_b(rt, train_rec, device_name, tmp) -> dict:
+    import threading
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    class TimedTrainer(TorchTrainer):
+        """TorchTrainer whose result carries the seconds of its fit."""
+
+        def fit(self):
+            t0 = time.time()
+            result = super().fit()
+            result.metrics = dict(result.metrics, fit_s=time.time() - t0)
+            return result
+
+    trainer = TimedTrainer(
+        _tune_trainer_loop,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(name="tune_b_inner", storage_path=tmp))
+    tuner = tune.Tuner(
+        trainer, param_space={"lr": tune.grid_search(list(TUNE_B_LRS))},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    max_concurrent_trials=1),
+        run_config=RunConfig(name="tune_b", storage_path=tmp))
+    from ray_tpu_torch._private import worker as worker_mod
+
+    raylet = worker_mod._global_node.raylet
+    out, held = {}, {}
+
+    def fit():
+        try:
+            out["grid"] = tuner.fit()
+        except BaseException as e:  # noqa: BLE001 — raised below
+            out["error"] = e
+
+    t0 = time.time()
+    th = threading.Thread(target=fit, daemon=True, name="tune-b-fit")
+    th.start()
+    while th.is_alive():
+        # What the raylet granted each actor, read while it lives: the
+        # trial actors and the trainers' workers.
+        for w in list(raylet.workers.values()):
+            if w.actor_id is not None:
+                held.setdefault(w.actor_id, {
+                    "pid": w.proc.pid if w.proc is not None else None,
+                    "resources": dict(w.actor_resources),
+                    "gpu_ids": list(w.actor_gpu_ids)})
+        th.join(0.2)
+    fit_s = time.time() - t0
+    if "error" in out:
+        raise out["error"]
+    grid = out["grid"]
+    _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after the trainer sweep")
+    L = TUNE_B_LAYERS
+    predicted = _predicted_launches(L)
+    trial_held = [held.get(getattr(t.actor._actor_id, "binary",
+                                   lambda a=t.actor._actor_id: a)())
+                  for t in grid._trials]
+    gang_held = [next((h for h in held.values()
+                       if h["pid"] == r.metrics.get("pid")
+                       and h["resources"].get("GPU")), None) for r in grid]
+    trials = [{"lr": t.config["lr"], "state": t.state,
+               "error": str(r.error)[:2000] if r.error else None,
+               "loss": r.metrics.get("loss"), "losses": r.metrics.get("losses"),
+               "fit_s": r.metrics.get("fit_s"),
+               "step_ms_all": r.metrics.get("step_ms_all"),
+               "launches_per_step": r.metrics.get("launches_all"),
+               "trial_actor_held": th_, "gang_worker_held": gh,
+               "gang_worker_device": r.metrics.get("device_name"),
+               "gang_worker_visible": r.metrics.get("visible")}
+              for t, r, th_, gh in zip(grid._trials, grid, trial_held,
+                                       gang_held)]
+    for t in trials:
+        check(t["error"] is None, f"trainer trial lr={t['lr']} failed: "
+              f"{t['error']}")
+    best = grid.get_best_result()
+    launches = {n: sum(lp[n] for r in grid
+                       for lp in r.metrics.get("launches_all", []))
+                for n in predicted}
+    rec = {"model": "llama2-1b", "dtype": "bfloat16", "n_layers": L,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TUNE_B_STEPS,
+           "scaling": {"num_workers": 1, "use_gpu": True},
+           "trial_resources": {"CPU": 1}, "fit_s": fit_s, "trials": trials,
+           "best": {"lr": next(t["lr"] for t, r in zip(trials, grid)
+                               if r is best),
+                    "loss": best.metrics.get("loss")},
+           "launches": launches, "predicted_per_step": predicted}
+    for t in trials:
+        check(t["launches_per_step"] == [predicted] * TUNE_B_STEPS,
+              f"trainer trial lr={t['lr']}: launches {t['launches_per_step']}"
+              f" != {predicted} a step")
+        check(t["gang_worker_device"] == device_name,
+              f"trainer trial lr={t['lr']} trained on "
+              f"{t['gang_worker_device']}")
+        check(t["trial_actor_held"] is not None
+              and not t["trial_actor_held"]["resources"].get("GPU")
+              and not t["trial_actor_held"]["gpu_ids"],
+              f"trainer trial lr={t['lr']}: the trial actor was granted "
+              f"{t['trial_actor_held']}")
+        check(t["gang_worker_held"] is not None
+              and t["gang_worker_held"]["gpu_ids"] == [t["gang_worker_visible"]],
+              f"trainer trial lr={t['lr']}: its gang worker was not granted "
+              f"the card it trained on: {t['gang_worker_held']}")
+        check(all(np.isfinite(t["losses"])), f"a loss is not finite: {t}")
+    return rec
+
+
+def phase_tune(train_rec, device_name):
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="rt_tune_")
+    rt.init(num_cpus=4)
+    try:
+        t0 = time.perf_counter()
+        rec_a = _tune_a(rt, train_rec, device_name, tmp)
+        rec_a["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec_b = _tune_b(rt, train_rec, device_name, tmp)
+        rec_b["seconds"] = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    left, procs = _stop_runtime()
+    rec = {"phase": "tune", "asha_gpu_trials": rec_a,
+           "tuner_over_torch_trainer": rec_b,
+           "workers_after_shutdown": left,
+           "runtime_procs_after_zygote_stop": procs}
+    emit(rec)
+    check(not left, f"workers outlived shutdown(): {left}")
+    check(not procs, f"runtime processes outlived the zygote's stop: {procs}")
+    return rec_a["launches"], rec_b["launches"]
+
+
+# -- dag: a compiled two-stage chain, the RMSNorm kernel on a GPU actor ------
+DAG_EXECUTES = 200
+DAG_SHAPE = (8, 4096)
+
+
+class _DagNorm:
+    """Stage 1, on the card: the RMSNorm forward kernel. Arrays cross the
+    channels as numpy (a CUDA tensor would pickle with its device)."""
+
+    def __init__(self, seed, d):
+        import torch
+
+        from ray_tpu_torch.ops.rmsnorm import rmsnorm_cuda
+
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.w = (torch.randn(d, generator=gen, device="cuda") * 0.1
+                  + 1).to(torch.bfloat16)
+        rmsnorm_cuda.launches = 0
+
+    def norm(self, x):
+        import torch
+
+        from ray_tpu_torch.ops.rmsnorm import rmsnorm
+
+        xt = torch.from_numpy(x).to("cuda").to(torch.bfloat16)
+        return rmsnorm(xt, self.w, EPS).float().cpu().numpy()
+
+    def launches(self):
+        from ray_tpu_torch.ops.rmsnorm import rmsnorm_cuda
+
+        return rmsnorm_cuda.launches
+
+    def info(self):
+        import os
+
+        import torch
+
+        return {"pid": os.getpid(), "device_name": torch.cuda.get_device_name(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+class _DagChecksum:
+    """Stage 2, on the CPU: a checksum of the normalised rows."""
+
+    def checksum(self, y):
+        import zlib
+
+        return {"y": y, "crc": zlib.crc32(y.tobytes())}
+
+
+def phase_dag(device_name):
+    import gc
+    import os
+    import zlib
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.ops.rmsnorm import _rmsnorm_plain
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, d = DAG_SHAPE
+    rng = np.random.default_rng(SEED + 11)
+    xs = [(rng.standard_normal(DAG_SHAPE) * 3).astype(np.float32)
+          for _ in range(DAG_EXECUTES)]
+    rt.init(num_cpus=4)
+    try:
+        norm = rt.remote(num_gpus=1)(_DagNorm).remote(SEED + 12, d)
+        csum = rt.remote(num_cpus=1)(_DagChecksum).remote()
+        info = rt.get(norm.info.remote(), timeout=600)
+        check(rt.get(norm.launches.remote(), timeout=60) == 0,
+              "the GPU stage launched before the DAG ran")
+        with InputNode() as inp:
+            chain = csum.checksum.bind(norm.norm.bind(inp))
+        compiled = chain.experimental_compile()
+        names = sorted(c.name for c in compiled._channels)
+        exec_ms, outs = [], []
+        try:
+            for x in xs:  # the main path: counted from 0 on the actor
+                t0 = time.perf_counter()
+                outs.append(compiled.execute(x, timeout=120))
+                exec_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            compiled.teardown()
+        launches = rt.get(norm.launches.remote(), timeout=60)
+        segments_left = sorted(f for f in os.listdir("/dev/shm")
+                               if f.startswith("rtchan_"))
+        call_ms = []
+        for x in xs:
+            t0 = time.perf_counter()
+            rt.get(csum.checksum.remote(norm.norm.remote(x)), timeout=120)
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        rt.kill(norm)
+        rt.kill(csum)
+        _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after the DAG")
+        gpu_after = rt.available_resources().get("GPU", 0.0)
+    finally:
+        rt.shutdown()
+    left, procs = _stop_runtime()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    w = (torch.randn(d, generator=gen, device="cuda") * 0.1
+         + 1).to(torch.bfloat16)
+    ulps, crc_ok, max_abs = [], True, 0.0
+    for x, o in zip(xs, outs):
+        want = _rmsnorm_plain(torch.from_numpy(x).cuda().to(torch.bfloat16),
+                              w, EPS)
+        got = torch.from_numpy(o["y"]).cuda()
+        ulps.append(bf16_ulp_diff(got, want))
+        max_abs = max(max_abs, float((got - want.float()).abs().max()))
+        crc_ok &= zlib.crc32(o["y"].tobytes()) == o["crc"]
+    rec = {"phase": "dag", "stages": ["GPU actor: rmsnorm_fwd (bf16)",
+                                      "CPU actor: crc32 checksum"],
+           "shape": list(DAG_SHAPE), "executes": DAG_EXECUTES,
+           "gpu_stage": info, "channels": len(names),
+           "execute_ms_p50": _pct(exec_ms, 0.5),
+           "execute_ms_p99": _pct(exec_ms, 0.99),
+           "actor_calls_ms_p50": _pct(call_ms, 0.5),
+           "actor_calls_ms_p99": _pct(call_ms, 0.99),
+           "timing_note": "host wall on the chip machine",
+           "gpu_stage_launches": launches, "max_ulp": max(ulps),
+           "max_abs_err": max_abs, "checksums_ok": crc_ok,
+           "segments_left_after_teardown": segments_left,
+           "gpu_available_after": gpu_after,
+           "workers_after_shutdown": left,
+           "runtime_procs_after_zygote_stop": procs}
+    emit(rec)
+    check(info["device_name"] == device_name,
+          f"the GPU stage ran on {info['device_name']}")
+    check(len(outs) == DAG_EXECUTES, f"{len(outs)} results")
+    check(max(ulps) <= 1, f"a DAG result is {max(ulps)} bf16 ulp off")
+    check(crc_ok, "a checksum does not match the rows it came with")
+    check(launches == DAG_EXECUTES,
+          f"the GPU stage launched {launches} times in {DAG_EXECUTES} "
+          f"executes")
+    check(not segments_left, f"channel segments left: {segments_left}")
+    check(gpu_after == 1.0, f"GPU {gpu_after} after the DAG")
+    check(not left, f"workers outlived shutdown(): {left}")
+    check(not procs, f"runtime processes outlived the zygote's stop: {procs}")
+    return launches
+
+
+# -- cluster: a GPU node beside a CPU head, a 64 MiB pull across raylets -----
+CLUSTER_SHAPE = (8192, 2048)
+
+
+def _cluster_rmsnorm(seed, rows, d):
+    """The RMSNorm forward on the node's card; returns the rows as float32
+    (64 MiB, each a bf16 value) with a digest of their bytes."""
+    import hashlib
+    import os
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    w = (torch.randn(d, generator=gen, device="cuda") * 0.1 + 1).to(
+        torch.bfloat16)
+    rmsnorm_cuda.launches = 0
+    y = rmsnorm(x, w, EPS)
+    launches = rmsnorm_cuda.launches
+    out = y.float().cpu().numpy()
+    return {"out": out, "sha256": hashlib.sha256(out.tobytes()).hexdigest(),
+            "launches": launches,
+            "node_id": rt.get_runtime_context().get_node_id(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_name": torch.cuda.get_device_name()}
+
+
+def phase_cluster(device_name):
+    import gc
+    import hashlib
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.ops.rmsnorm import _rmsnorm_plain
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, d = CLUSTER_SHAPE
+    seed = SEED + 21
+    cluster = Cluster()
+    try:
+        head = cluster.add_node(num_cpus=2)
+        gpu_node = cluster.add_node(num_cpus=1, num_gpus=1)
+        cluster.connect()
+        resources = rt.cluster_resources()
+        ref = rt.remote(num_gpus=1)(_cluster_rmsnorm).remote(seed, rows, d)
+        ready, _ = rt.wait([ref], timeout=600, fetch_local=False)
+        check(ready, "the GPU task did not finish")
+        t0 = time.perf_counter()
+        got = rt.get(ref, timeout=600)
+        pull_s = time.perf_counter() - t0
+        cluster.remove_node(gpu_node)
+        deadline = time.monotonic() + 30
+        while ("GPU" in rt.cluster_resources()
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        after = rt.cluster_resources()
+    finally:
+        cluster.shutdown()
+    left, procs = _stop_runtime()
+    out = got["out"]
+    digest = hashlib.sha256(out.tobytes()).hexdigest()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    w = (torch.randn(d, generator=gen, device="cuda") * 0.1 + 1).to(
+        torch.bfloat16)
+    want = _rmsnorm_plain(x, w, EPS)
+    got_t = torch.from_numpy(out).cuda()
+    ulp = bf16_ulp_diff(got_t, want)
+    max_abs = float((got_t - want.float()).abs().max())
+    rec = {"phase": "cluster",
+           "nodes": {"head": {"num_cpus": 2, "node_id": head.node_id.hex()},
+                     "gpu": {"num_cpus": 1, "num_gpus": 1,
+                             "node_id": gpu_node.node_id.hex()}},
+           "cluster_resources": resources, "shape": list(CLUSTER_SHAPE),
+           "task_node_id": got["node_id"], "task_visible": got["visible"],
+           "task_device": got["device_name"], "launches": got["launches"],
+           "bytes": out.nbytes, "pull_s": pull_s,
+           "pull_gb_s": out.nbytes / pull_s / 1e9,
+           "digest_equal": digest == got["sha256"], "max_ulp": ulp,
+           "max_abs_err": max_abs, "cluster_resources_after_remove": after,
+           "workers_after_shutdown": left,
+           "runtime_procs_after_zygote_stop": procs}
+    emit(rec)
+    check(resources.get("GPU") == 1.0, f"cluster GPUs: {resources}")
+    check(got["node_id"] == gpu_node.node_id.hex(),
+          f"the GPU task ran on node {got['node_id']}, not the GPU node")
+    check(got["device_name"] == device_name,
+          f"the GPU task ran on {got['device_name']}")
+    check(out.nbytes >= 64 * 10**6, f"the result is {out.nbytes} bytes")
+    check(digest == got["sha256"], "the pulled bytes differ from the sent")
+    check(ulp <= 1, f"the pulled rows are {ulp} bf16 ulp off the plain "
+          f"version")
+    check(got["launches"] == 1, f"the task launched {got['launches']} times")
+    check("GPU" not in after, f"the GPU stayed after remove_node: {after}")
+    check(not left, f"workers outlived shutdown(): {left}")
+    check(not procs, f"runtime processes outlived the zygote's stop: {procs}")
+    return got["launches"]
 
 
 def main() -> int:
@@ -2540,6 +3199,9 @@ def main() -> int:
     serve_launches = run(phase_serve, slice_rec, runtime_rec, name)
     trainer_launches = run(phase_trainer, train, name)
     job_launches = run(phase_job, name)
+    tune_a_launches, tune_b_launches = run(phase_tune, train, name)
+    dag_launches = run(phase_dag, name)
+    cluster_launches = run(phase_cluster, name)
     emit({"phase": "timing", "seconds": seconds})
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "ray_tpu") or m.startswith(("jax.",
@@ -2551,15 +3213,16 @@ def main() -> int:
         "name": "rmsnorm_fwd", "route": "cuda",
         "source": "ray_tpu_torch/csrc/rmsnorm.cu",
         "replaces": "ray_tpu/ops/rmsnorm.py:49",
-        "launches": (launches + train_launches["rmsnorm_fwd"]
-                     + runtime_launches + serve_launches
-                     + trainer_launches["rmsnorm_fwd"] + job_launches),
         "launches_by_path": {"serve": launches,
                              "train": train_launches["rmsnorm_fwd"],
                              "runtime_actor": runtime_launches,
                              "serve_deployment": serve_launches,
                              "trainer": trainer_launches["rmsnorm_fwd"],
-                             "job": job_launches},
+                             "job": job_launches,
+                             "tune_a": tune_a_launches["rmsnorm_fwd"],
+                             "tune_b": tune_b_launches["rmsnorm_fwd"],
+                             "dag": dag_launches,
+                             "cluster": cluster_launches},
         "max_abs_err": max_abs,
         "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -2579,17 +3242,21 @@ def main() -> int:
         records.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": train_launches[kname] + trainer_launches[kname],
             "launches_by_path": {"train": train_launches[kname],
-                                 "trainer": trainer_launches[kname]},
+                                 "trainer": trainer_launches[kname],
+                                 "tune_a": tune_a_launches[kname],
+                                 "tune_b": tune_b_launches[kname]},
             "max_abs_err": train_err[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library"]["ms"],
             "shape": t["shape"], "dtype": t["dtype"]})
         if kname in FLASH_DESIGN:
             records[-1]["design"] = FLASH_DESIGN[kname]
-    missing = [r["name"] for r in records if r["launches"] == 0]
-    check(not missing, f"kernels never launched on the main path: {missing}")
+    for r in records:
+        r["launches"] = sum(r["launches_by_path"].values())
+    missing = [r["name"] for r in records
+               if 0 in r["launches_by_path"].values()]
+    check(not missing, f"kernels never launched on a path: {missing}")
     emit({"kernels": records})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

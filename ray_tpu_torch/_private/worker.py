@@ -29,7 +29,6 @@ from ray_tpu_torch._private import serialization as ser
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.function_manager import FunctionManager
 from ray_tpu_torch._private.ids import ActorID, JobID, ObjectID, TaskID, object_id_for_task
-from ray_tpu_torch._private.not_ported import not_ported
 from ray_tpu_torch._private.object_store import ObjectStore
 from ray_tpu_torch._private.protocol import (
     Connection,
@@ -282,7 +281,9 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Lazy DAG composition (reference: dag/class_node.py)."""
-        raise not_ported("DAG composition (.bind())")
+        from ray_tpu_torch.dag.dag_node import ClassMethodNode
+
+        return ClassMethodNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

@@ -26,7 +26,6 @@ from ray_tpu_torch._private import worker as worker_mod
 from ray_tpu_torch._private.accelerators.gpu import confine_process_to_gpus
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.ids import JobID, ObjectID, TaskID, object_id_for_task
-from ray_tpu_torch._private.not_ported import not_ported
 from ray_tpu_torch._private.protocol import RpcServer, connect, spawn
 from ray_tpu_torch._private.worker import CoreClient, make_task_error
 from ray_tpu_torch.exceptions import ActorDiedError
@@ -757,8 +756,25 @@ class WorkerProcess:
     # -- compiled DAG resident loop (do_exec_compiled_task analog,
     # dag/compiled_dag_node.py:34) ---------------------------------------
     async def h_dag_start(self, d, conn):
-        e = not_ported("compiled DAGs and channels")
-        return {"ok": False, "error": f"{type(e).__name__}: {e}"}
+        actor = self.actor
+        if actor is None or actor.actor_id != d["actor_id"]:
+            return {"ok": False, "error": "actor not hosted by this worker"}
+        try:
+            stages = self._bind_dag_stages(d["stages"], actor.instance)
+        except Exception as e:  # noqa: BLE001
+            return {"ok": False, "error": f"{type(e).__name__}: {e}"}
+        stop = threading.Event()
+        loop_id = os.urandom(8).hex()
+        # Serialize stages with regular actor calls on single-threaded
+        # actors: both paths take the actor's state lock.
+        lock = actor.lock if actor.max_concurrency == 1 else None
+        t = threading.Thread(
+            target=self._dag_loop, args=(stages, stop, lock), daemon=True,
+            name="rt-dag-loop",
+        )
+        t.start()
+        self._dag_loops.append((loop_id, t, stop))
+        return {"ok": True, "loop_id": loop_id}
 
     async def h_dag_stop(self, d, conn):
         target = d.get("loop_id")
@@ -769,6 +785,90 @@ class WorkerProcess:
             (lid, t, s) for lid, t, s in self._dag_loops if t.is_alive()
         ]
         return {"ok": True}
+
+    @staticmethod
+    def _bind_dag_stages(stage_specs, instance):
+        import pickle
+
+        from ray_tpu_torch.experimental.channel import Channel
+
+        stages = []
+        for spec in stage_specs:
+            args = []
+            for a in spec["args"]:
+                if a["kind"] == "chan":
+                    args.append(Channel(name=a["name"]))
+                else:
+                    args.append(("const", pickle.loads(a["value"])))
+            kwargs = {}
+            for k, v in spec["kwargs"].items():
+                if v["kind"] == "chan":
+                    kwargs[k] = Channel(name=v["name"])
+                else:
+                    kwargs[k] = ("const", pickle.loads(v["value"]))
+            stages.append(
+                {
+                    "method": getattr(instance, spec["method"]),
+                    "args": args,
+                    "kwargs": kwargs,
+                    "outs": [Channel(name=n) for n in spec["out_channels"]],
+                }
+            )
+        return stages
+
+    @staticmethod
+    def _dag_loop(stages, stop: threading.Event, state_lock=None):
+        from ray_tpu_torch.dag.compiled_dag import _StageError
+        from ray_tpu_torch.experimental.channel import Channel, ChannelClosed
+
+        def read_arg(a):
+            if isinstance(a, Channel):
+                while True:
+                    try:
+                        return a.read(timeout=0.5)
+                    except TimeoutError:
+                        if stop.is_set():
+                            raise ChannelClosed(a.name) from None
+            return a[1]  # ("const", value)
+
+        try:
+            while not stop.is_set():
+                for stage in stages:
+                    args = [read_arg(a) for a in stage["args"]]
+                    kwargs = {k: read_arg(v) for k, v in stage["kwargs"].items()}
+                    err = next(
+                        (x for x in [*args, *kwargs.values()]
+                         if isinstance(x, _StageError)),
+                        None,
+                    )
+                    if err is not None:
+                        value = err  # propagate without executing
+                    else:
+                        try:
+                            if state_lock is not None:
+                                with state_lock:
+                                    value = stage["method"](*args, **kwargs)
+                            else:
+                                value = stage["method"](*args, **kwargs)
+                        except BaseException as e:  # noqa: BLE001
+                            value = _StageError(e)
+                    for out in stage["outs"]:
+                        while True:
+                            try:
+                                out.write(value, timeout=0.5)
+                                break
+                            except TimeoutError:
+                                if stop.is_set():
+                                    raise ChannelClosed(out.name) from None
+        except ChannelClosed:
+            pass
+        finally:
+            for stage in stages:
+                for a in [*stage["args"], *stage["kwargs"].values()]:
+                    if isinstance(a, Channel):
+                        a.detach()
+                for out in stage["outs"]:
+                    out.detach()
 
     async def h_ping(self, d, conn):
         return {"pong": True, "actor": self.actor is not None}

@@ -11,7 +11,6 @@ import functools
 from typing import Any, Dict, Optional
 
 from ray_tpu_torch._private import worker as worker_mod
-from ray_tpu_torch._private.not_ported import not_ported
 
 
 def _resources_from_options(opts: Dict[str, Any]) -> Dict[str, float]:
@@ -74,7 +73,9 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Lazy DAG composition (reference: dag/function_node.py)."""
-        raise not_ported("DAG composition (.bind())")
+        from ray_tpu_torch.dag.dag_node import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

@@ -4,7 +4,9 @@ step on the CPU, the engine on the card, and the runtime core's GPU
 resource (detection, and a num_gpus=1 actor that launches the RMSNorm
 kernel in its own worker process), llm_deployment through serve.run
 from a num_gpus=1 replica, a one-worker TorchTrainer on an NCCL group of
-one, and a checkpoint of CUDA bf16 tensors. Each test skips without a
+one, a checkpoint of CUDA bf16 tensors, Tune trials that hold the card
+(and one that finds none and raises) and a compiled DAG with a GPU
+stage. Each test skips without a
 CUDA device. This file imports no JAX, so on a machine with a card and
 without JAX it runs on its own:
 
@@ -583,3 +585,173 @@ def test_checkpoint_round_trip_of_cuda_bf16_tensors(cuda_device, tmp_path):
     ck.wait()
     got = Checkpoint(c.path).to_pytree(device="cpu")
     assert torch.equal(got["params"]["b"], want)
+
+
+def _tune_on_card(monkeypatch, tmp_path, trainable, param_space):
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig
+
+    monkeypatch.delenv("RT_NUM_GPUS", raising=False)
+    rt.init(num_cpus=2)
+    try:
+        grid = tune.Tuner(
+            tune.with_resources(trainable, {"CPU": 1, "GPU": 1}),
+            param_space=param_space,
+            tune_config=tune.TuneConfig(metric="ulp", mode="min",
+                                        max_concurrent_trials=1),
+            run_config=RunConfig(name="gpu", storage_path=str(tmp_path))
+        ).fit()
+        deadline = time.monotonic() + 60
+        while (rt.available_resources().get("GPU", 0.0)
+               != float(torch.cuda.device_count())
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        gpu_after = rt.available_resources().get("GPU", 0.0)
+    finally:
+        rt.shutdown()
+    return grid, gpu_after
+
+
+def test_gpu_tune_trial_runs_the_kernel_on_its_card(cuda_device, monkeypatch,
+                                                    tmp_path):
+    """A {"CPU": 1, "GPU": 1} trial is granted a card and confined to it
+    before its function makes a CUDA context (on the trial's own thread),
+    runs the RMSNorm kernel there and matches the plain version; the GPU
+    is back when the sweep ends."""
+
+    def trial(config):
+        import os
+        import threading
+
+        import torch
+
+        from ray_tpu_torch import tune
+        from ray_tpu_torch._private.accelerators.gpu import granted_gpu_ids
+        from ray_tpu_torch.ops.rmsnorm import _rmsnorm_plain, rmsnorm_cuda
+
+        gen = torch.Generator(device="cuda").manual_seed(config["seed"])
+        x = (torch.randn((8, 4096), generator=gen, device="cuda") * 3).to(
+            torch.bfloat16)
+        w = (torch.randn(4096, generator=gen, device="cuda") * 0.1 + 1).to(
+            torch.bfloat16)
+        rmsnorm_cuda.launches = 0
+        got = rmsnorm_cuda(x, w, 1e-6)
+        want = _rmsnorm_plain(x, w, 1e-6)
+
+        def ordered(t):
+            i = t.view(torch.int16).to(torch.int32)
+            return torch.where(i < 0, -(i & 0x7FFF), i)
+
+        tune.report({"ulp": int((ordered(got) - ordered(want)).abs().max()),
+                     "launches": rmsnorm_cuda.launches,
+                     "device": torch.cuda.get_device_name(),
+                     "devices": torch.cuda.device_count(),
+                     "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                     "granted": granted_gpu_ids(),
+                     "thread": threading.current_thread().name})
+
+    from ray_tpu_torch.tune import grid_search
+
+    grid, gpu_after = _tune_on_card(monkeypatch, tmp_path, trial,
+                                    {"seed": grid_search([1, 2])})
+    assert not grid.errors, grid.errors
+    for r in grid:
+        m = r.metrics
+        assert m["ulp"] <= 1 and m["launches"] == 1
+        assert m["device"] == torch.cuda.get_device_name(0)
+        assert m["devices"] == 1 and m["visible"] == m["granted"][0]
+        assert m["thread"] != "MainThread"
+    assert gpu_after == float(torch.cuda.device_count())
+
+
+def test_gpu_trial_without_a_card_raises(cuda_device, monkeypatch, tmp_path):
+    """A trial whose process sees no card (CUDA_VISIBLE_DEVICES emptied
+    before its CUDA context exists) fails with the port's error: the
+    model's entry point does not fall back to the CPU."""
+
+    def trial(config):
+        import os
+
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+        from ray_tpu_torch import tune
+        from ray_tpu_torch.models import configs, init_params
+
+        init_params(configs.tiny, seed=0)  # no device given: the card
+        tune.report({"ulp": 0})
+
+    from ray_tpu_torch.tune import grid_search
+
+    grid, gpu_after = _tune_on_card(monkeypatch, tmp_path, trial,
+                                    {"x": grid_search([0])})
+    assert len(grid.errors) == 1
+    assert "no CUDA device is available" in str(grid.errors[0])
+    assert grid[0].metrics == {}
+    assert gpu_after == float(torch.cuda.device_count())
+
+
+def test_compiled_dag_with_a_gpu_stage(cuda_device, monkeypatch):
+    """A compiled two-stage chain: a num_gpus=1 actor runs the RMSNorm
+    kernel, a CPU actor sums its rows; every output within 1 bf16 ulp of
+    the plain version, one launch per execute, no channel left after
+    teardown."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.ops.rmsnorm import _rmsnorm_plain
+
+    monkeypatch.delenv("RT_NUM_GPUS", raising=False)
+    rt.init(num_cpus=2)
+    try:
+        @rt.remote(num_gpus=1)
+        class Norm:
+            def __init__(self):
+                import torch
+
+                gen = torch.Generator(device="cuda").manual_seed(3)
+                self.w = (torch.randn(4096, generator=gen, device="cuda")
+                          * 0.1 + 1).to(torch.bfloat16)
+
+            def norm(self, x):
+                import torch
+
+                from ray_tpu_torch.ops.rmsnorm import rmsnorm_cuda
+
+                xt = torch.from_numpy(x).cuda().to(torch.bfloat16)
+                return rmsnorm_cuda(xt, self.w, 1e-6).float().cpu().numpy()
+
+            def launches(self):
+                from ray_tpu_torch.ops.rmsnorm import rmsnorm_cuda
+
+                return rmsnorm_cuda.launches
+
+        @rt.remote
+        class Sum:
+            def rows(self, y):
+                return y, y.astype(np.float64).sum(axis=1)
+
+        norm, total = Norm.remote(), Sum.remote()
+        with InputNode() as inp:
+            dag = total.rows.bind(norm.norm.bind(inp))
+        compiled = dag.experimental_compile()
+        names = [c.name for c in compiled._channels]
+        rng = np.random.default_rng(0)
+        xs = [(rng.standard_normal((8, 4096)) * 3).astype(np.float32)
+              for _ in range(20)]
+        try:
+            outs = [compiled.execute(x, timeout=300) for x in xs]
+        finally:
+            compiled.teardown()
+        assert rt.get(norm.launches.remote(), timeout=60) == len(xs)
+        assert not set(names) & set(os.listdir("/dev/shm"))
+    finally:
+        rt.shutdown()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    w = (torch.randn(4096, generator=gen, device="cuda") * 0.1
+         + 1).to(torch.bfloat16)
+    for x, (y, sums) in zip(xs, outs):
+        want = _rmsnorm_plain(torch.from_numpy(x).cuda().to(torch.bfloat16),
+                              w, 1e-6)
+        assert _bf16_ulp_diff(torch.from_numpy(y).cuda(), want) <= 1
+        np.testing.assert_allclose(sums, y.astype(np.float64).sum(axis=1))

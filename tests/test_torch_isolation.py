@@ -206,6 +206,29 @@ def test_train_job_and_runtime_env_modules_import_no_jax(module):
     assert proc.stdout.strip() == "[]"
 
 
+_TUNE_DAG_CLUSTER_MODULES = [
+    "ray_tpu_torch.tune", "ray_tpu_torch.tune.search",
+    "ray_tpu_torch.tune.schedulers", "ray_tpu_torch.tune.session_bridge",
+    "ray_tpu_torch.tune.tuner", "ray_tpu_torch.dag",
+    "ray_tpu_torch.dag.dag_node", "ray_tpu_torch.dag.compiled_dag",
+    "ray_tpu_torch.experimental", "ray_tpu_torch.experimental.channel",
+    "ray_tpu_torch.cluster_utils"]
+
+
+@pytest.mark.parametrize("module", _TUNE_DAG_CLUSTER_MODULES)
+def test_tune_dag_and_cluster_modules_import_no_jax_and_no_torch(module):
+    """tune, dag, experimental and cluster_utils load neither JAX nor
+    ray_tpu, and no torch: a trial, a DAG stage or a task imports torch
+    where it runs, in its own worker."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'ray_tpu')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
 def test_train_job_and_runtime_env_leave_torch_unloaded():
     code = ("import sys\n"
             "import ray_tpu_torch.train, ray_tpu_torch.job, "

@@ -7,7 +7,7 @@ stream's error, the multiplexed model LRU, `run_from_config` importing
 the user's module, route push invalidation, a dead replica replaced, a
 request redispatched after its replica died, a `user_config` redeploy
 reconfiguring in place, the per-node proxy with its HTTP and binary
-ingress, and `serve.call` from the driver and from a plain task. Faults
+ingress (on one node here; on two, in tests/test_torch_cluster.py), and `serve.call` from the driver and from a plain task. Faults
 are recorded once they have settled: the replacement replica serving,
 not the first failed call. Batch sizes depend on timing, so only the
 results and the batch total are compared.

@@ -17,8 +17,10 @@ has not got:
     port's own — each gang epoch rendezvouses its torch process group at
     a new address, and a gloo op on a silent peer raises within the
     group's timeout;
-  * A2b.3 cluster_utils: the straggler and live-resize cases run on one
-    node (an injected drain shrinks the gang, which then grows back).
+  * the straggler and live-resize cases run on one node (an injected
+    drain shrinks the gang, which then grows back); the straggler on a
+    gang spread over two nodes of a `Cluster` is in
+    tests/test_torch_cluster.py.
 Each test carries the `slow` mark where its JAX counterpart does.
 """
 
