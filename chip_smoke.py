@@ -125,6 +125,27 @@ prints no result line:
            that the driver pulls across the raylets (GB/s printed; the
            bytes' digest equal, within 1 bf16 ulp of the plain version);
            after remove_node() the GPU leaves cluster_resources().
+  cli      the operator's flow: probes for pyarrow and joblib, then
+           `python -m ray_tpu_torch start --head` (the GPU detected, a
+           512 MiB store); a driver joins and a num_gpus=1 actor trains
+           the train phase's model (llama2-1b, full width and depth,
+           bf16, seed 0, the same AdamW and batches) for 3 steps, the
+           second inside a traced span, and samples its card memory
+           (util.memory); meanwhile `status`, `list`, `summary`,
+           `timeline`, `trace`, `logs`, `memory --devices`, `top` and
+           `stack` run, each in a fresh interpreter. The losses must equal
+           the train phase's steps 1-3 bit for bit, each step launch what
+           it predicts, `memory --devices` show the actor's own
+           memory_allocated, `stack` the actor's running call, `trace`
+           the span tree; after kill() the GPU reading rises once. Then
+           `rt job submit` of the job phase's working_dir job, a
+           util.queue.Queue carrying 50 RMSNorm outputs from a GPU actor
+           (bit-equal to what the actor sent, within 1 bf16 ulp of the
+           driver's plain version), a util.multiprocessing.Pool and a
+           ParallelIterator, 4 x 256 MiB of a GPU task's RMSNorm results
+           spilled out of the store (through UriStorage to a file:// URI
+           where pyarrow is present) and read back bit-equal; `rt stop`
+           leaves no process.
 
 Then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -1884,11 +1905,10 @@ GPU_SETTLE_S = 1.5  # three of the raylet's heartbeats
 
 def _wait_gpu(rt, want: float, what: str) -> None:
     """Wait until the GCS's view of the GPU reads `want` and holds it for
-    GPU_SETTLE_S. Removing a placement group (or killing an actor) credits
-    its card in the GCS's view at once, while the raylet still counts it
-    held until the worker is gone; the raylet's next heartbeat (every
-    0.5 s) takes the early credit back (ROADMAP §C). A view that holds
-    across three heartbeats is the raylet's own."""
+    GPU_SETTLE_S (three of the raylet's heartbeats). The GCS no longer
+    credits a removed group's card before the raylet frees it (ROADMAP
+    §C, fixed); the wait stays as a guard against a reading that does
+    not hold."""
     deadline = time.monotonic() + 120
     since = None
     while True:
@@ -3161,6 +3181,456 @@ def phase_cluster(device_name):
     return got["launches"]
 
 
+# -- cli: the operator's flow on a node started by `rt start` ----------------
+# The training user's tools at full width: `python -m ray_tpu_torch start`
+# brings up a GPU node, a driver joins it and a num_gpus=1 actor trains
+# phase_train's model, while the CLI (each command a fresh interpreter)
+# reads the node; then a job, a Queue, a Pool, a ParallelIterator, 4 x 256
+# MiB of a GPU task's results spilled out of a 512 MiB store, `rt stop`.
+CLI_STEPS = 3
+CLI_STORE_BYTES = 512 * 2**20
+CLI_SPILL_ROWS, CLI_SPILL_D, CLI_SPILLS = 32768, 4096, 4  # 256 MiB bf16 each
+CLI_QUEUE_ITEMS = 50
+# params and AdamW state of llama2-1b in bf16 (the trainer phase's checkpoint)
+LLAMA2_1B_STATE_BYTES = 5_643_850_781
+
+
+def _cli(env, *args, timeout=180):
+    """One `python -m ray_tpu_torch ...` in a fresh interpreter: its
+    output and wall seconds; a failing command fails the phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"rt {' '.join(args)} exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def _probe_packages() -> dict:
+    """Whether this machine has pyarrow (URI spilling, ROADMAP A6's data
+    slice) and joblib (util.joblib), each probed in a fresh interpreter."""
+    out = {}
+    for mod in ("pyarrow", "joblib"):
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             f"import {mod}; print({mod}.__version__)"],
+            capture_output=True, text=True, timeout=120)
+        out[mod] = proc.stdout.strip() if proc.returncode == 0 else "absent"
+    return out
+
+
+def _spill_rmsnorm(seed, rows, d):
+    """A num_gpus=1 task: the RMSNorm forward at rows x d bf16 on the
+    card; its 256 MiB result (as int16 bits), their digest and the
+    kernel's launches."""
+    import hashlib
+
+    import torch
+    from ray_tpu_torch.ops.rmsnorm import rmsnorm_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    w = (torch.randn(d, generator=gen, device="cuda") * 0.1 + 1).to(
+        torch.bfloat16)
+    rmsnorm_cuda.launches = 0
+    out = rmsnorm_cuda(x, w, EPS).view(torch.int16).cpu().numpy()
+    return out, {"sha256": hashlib.sha256(out.tobytes()).hexdigest(),
+                 "launches": rmsnorm_cuda.launches}
+
+
+def _queue_inputs(i):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 100 + i)
+    x = (torch.randn((8, 4096), generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    w = (torch.randn(4096, generator=gen, device="cuda") * 0.1 + 1).to(
+        torch.bfloat16)
+    return x, w
+
+
+def phase_cli(train_rec, device_name):
+    import gc
+    import hashlib
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+
+    packages = _probe_packages()
+    emit({"phase": "cli", "probe": packages})
+    if packages["pyarrow"] == "absent":
+        print(json.dumps({"pyarrow": "absent"}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="rt_cli_")
+    spill_dir = os.path.join(tmp, "spill")
+    env = {k: v for k, v in os.environ.items() if k != "RT_NUM_GPUS"}
+    env["TMPDIR"] = tmp
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in [os.path.dirname(os.path.abspath(__file__)),
+                    env.get("PYTHONPATH", "")] if p)
+    env["RT_SPILL_DIR"] = (("file://" + spill_dir)
+                           if packages["pyarrow"] != "absent" else spill_dir)
+    os.environ["TMPDIR"] = tmp  # the driver's own node logs there too
+    walls = {}
+    t0 = time.perf_counter()
+    started, walls["start"] = _cli(
+        env, "start", "--head", "--num-cpus", "4",
+        "--object-store-memory", str(CLI_STORE_BYTES))
+    with open(os.path.join(tmp, "ray_tpu_torch", "session.json")) as f:
+        session = json.load(f)
+    addr = session["gcs_address"]
+    from ray_tpu_torch.util.state import list_nodes
+
+    while not any(n["resources_total"].get("GPU") for n in
+                  list_nodes(address=addr)):
+        check(time.perf_counter() - t0 < 120, "rt start's node shows no GPU")
+        time.sleep(0.05)
+    start_to_gpu_s = time.perf_counter() - t0
+    status0, walls["status"] = _cli(env, "status")
+    check("  1/1 GPU" in status0, f"rt status after rt start: {status0}")
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import tracing
+
+    # The driver's node: no card (rt start's node holds it) and a store
+    # that takes a 256 MiB result.
+    rt.init(address=addr, num_gpus=0, object_store_memory=2 * 2**30)
+    try:
+        @rt.remote(num_gpus=1)
+        class CliTrainer:
+            """phase_train's model, AdamW and batches in an actor on the
+            card; each step reports its loss, time and launches."""
+
+            def __init__(self):
+                import dataclasses
+
+                from ray_tpu_torch.models import configs, init_params
+
+                self.cfg = dataclasses.replace(
+                    configs.llama2_1b, max_seq=TRAIN_SEQ, remat=True,
+                    remat_policy="dots_nobatch")
+                self.params = init_params(self.cfg, seed=SEED)
+                self.leaves = _flat_params(self.params)
+                for t in self.leaves:
+                    t.requires_grad_(True)
+                self.opt = torch.optim.AdamW(
+                    self.leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                    weight_decay=1e-4)
+                gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+                self.batches = torch.randint(
+                    0, self.cfg.vocab_size,
+                    (TRAINER_STEPS, TRAIN_BATCH, TRAIN_SEQ + 1),
+                    generator=gen, device="cuda")
+
+            def step(self, i):
+                from ray_tpu_torch.models import loss_fn
+                from ray_tpu_torch.util import tracing
+
+                counters = _train_launch_counters()
+                for fn in counters.values():
+                    fn.launches = 0
+                tracing.enable()  # this worker's spans, not just the task's
+                t0 = time.perf_counter()
+                with tracing.span("cli.train_step"):
+                    self.opt.zero_grad(set_to_none=True)
+                    loss = loss_fn(self.params, self.batches[i], self.cfg)
+                    loss.backward()
+                    self.opt.step()
+                    torch.cuda.synchronize()
+                return {"loss": loss.item(),
+                        "step_s": time.perf_counter() - t0,
+                        "launches": {n: fn.launches
+                                     for n, fn in counters.items()}}
+
+            def sample(self):
+                import os
+
+                from ray_tpu_torch.util import memory, metrics
+
+                sample = memory.sample_once()
+                allocated = torch.cuda.memory_allocated()
+                metrics._flush_once()
+                return {"sample": sample, "allocated": allocated,
+                        "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                        "pid": os.getpid(),
+                        "device_name": torch.cuda.get_device_name()}
+
+            def hold(self, seconds):
+                time.sleep(seconds)
+                return True
+
+        tracing.enable()
+        trainer = CliTrainer.remote()
+        steps = []
+        for i in range(CLI_STEPS):
+            if i == 1:
+                with tracing.span("cli.driver_step"):
+                    trace_id = tracing.current()["trace_id"]
+                    steps.append(rt.get(trainer.step.remote(i), timeout=900))
+            else:
+                steps.append(rt.get(trainer.step.remote(i), timeout=900))
+        tracing.disable()
+        held = rt.get(trainer.sample.remote(), timeout=120)
+
+        # The CLI on the live node, while the actor holds its state.
+        out = {}
+        for name, args in (
+                ("status", ["status"]), ("list_nodes", ["list", "nodes"]),
+                ("list_actors", ["list", "actors"]),
+                ("list_tasks", ["list", "tasks"]),
+                ("list_workers", ["list", "workers"]),
+                ("list_objects", ["list", "objects"]),
+                ("summary_tasks", ["summary", "tasks"]),
+                ("timeline", ["timeline", "-o",
+                              os.path.join(tmp, "timeline.json")]),
+                ("trace", ["trace", trace_id]), ("logs", ["logs"]),
+                ("memory_devices", ["memory", "--devices"]),
+                ("top", ["top"])):
+            out[name], walls[name] = _cli(env, *args)
+        holding = trainer.hold.remote(30.0)
+        time.sleep(1.0)
+        out["stack"], walls["stack"] = _cli(env, "stack")
+        from ray_tpu_torch.util.memory import memory_summary
+
+        summary = memory_summary(address=addr)
+        check(rt.get(holding, timeout=120), "the hold call failed")
+        with open(os.path.join(tmp, "timeline.json")) as f:
+            timeline = json.load(f)
+
+        rt.kill(trainer)
+        t_kill = time.perf_counter()
+        readings = []
+        while time.perf_counter() - t_kill < 120:
+            readings.append(rt.available_resources().get("GPU", 0.0))
+            up = [i for i, r in enumerate(readings) if r >= 1.0]
+            if up and (len(readings) - up[0]) * 0.05 >= GPU_SETTLE_S:
+                break
+            time.sleep(0.05)
+        up = [i for i, r in enumerate(readings) if r >= 1.0]
+        gpu_back_s = up[0] * 0.05 if up else None
+        gpu_fell = bool(up) and min(readings[up[0]:]) < 1.0
+
+        # rt job submit: phase_job's working_dir job on this node.
+        wd = os.path.join(tmp, "job_wd")
+        os.makedirs(wd)
+        with open(os.path.join(wd, "job_main.py"), "w") as f:
+            f.write(JOB_MAIN)
+        token = f"cli-seed-{SEED}-{os.getpid()}"
+        with open(os.path.join(wd, "job_data.json"), "w") as f:
+            json.dump({"seed": SEED + 7, "shape": [8, 4096], "eps": EPS,
+                       "token": token}, f)
+        marker = "rt-cli-job-marker"
+        t0 = time.perf_counter()
+        said, walls["job_submit"] = _cli(
+            env, "job", "submit", "--working-dir", wd, "--runtime-env-json",
+            json.dumps({"env_vars": {"RT_JOB_MARKER": marker}}), "--",
+            sys.executable, "job_main.py")
+        sid = said.split()[-1]
+        job_state = None
+        while time.perf_counter() - t0 < 600:
+            job_state, walls["job_status"] = _cli(env, "job", "status", sid)
+            job_state = job_state.strip()
+            if job_state in ("SUCCEEDED", "FAILED", "STOPPED"):
+                break
+            time.sleep(0.1)
+        job_s = time.perf_counter() - t0
+        job_logs, walls["job_logs"] = _cli(env, "job", "logs", sid)
+        lines = [ln for ln in job_logs.splitlines()
+                 if ln.startswith("JOB_TASK ")]
+        job_task = json.loads(lines[-1][len("JOB_TASK "):]) if lines else {}
+
+        # util.queue: 50 RMSNorm outputs from a GPU actor to the driver.
+        from ray_tpu_torch.ops.rmsnorm import _rmsnorm_plain
+        from ray_tpu_torch.util.queue import Queue
+
+        q = Queue(maxsize=8)
+
+        @rt.remote(num_gpus=1)
+        class Producer:
+            def run(self, q, n):
+                import hashlib
+
+                from ray_tpu_torch.ops.rmsnorm import rmsnorm_cuda
+
+                rmsnorm_cuda.launches = 0
+                digests = []
+                for i in range(n):
+                    x, w = _queue_inputs(i)
+                    got = rmsnorm_cuda(x, w, EPS).view(torch.int16)
+                    arr = got.cpu().numpy()
+                    digests.append(hashlib.sha256(arr.tobytes()).hexdigest())
+                    q.put(arr)
+                return {"digests": digests,
+                        "launches": rmsnorm_cuda.launches}
+
+        producer = Producer.remote()
+        produced = producer.run.remote(q, CLI_QUEUE_ITEMS)
+        items = [q.get(timeout=300) for _ in range(CLI_QUEUE_ITEMS)]
+        prod = rt.get(produced, timeout=300)
+        rt.kill(producer)
+        q.shutdown()
+        queue_ulp, queue_digests_equal = 0, True
+        for i, arr in enumerate(items):
+            x, w = _queue_inputs(i)
+            want = _rmsnorm_plain(x, w, EPS)
+            got = torch.from_numpy(arr).cuda().view(torch.bfloat16)
+            queue_ulp = max(queue_ulp, bf16_ulp_diff(got, want))
+            queue_digests_equal &= (hashlib.sha256(arr.tobytes()).hexdigest()
+                                    == prod["digests"][i])
+
+        # util.multiprocessing.Pool and util.iter over CPU tasks.
+        from ray_tpu_torch.util import iter as rt_iter
+        from ray_tpu_torch.util.multiprocessing import Pool
+
+        with Pool(processes=2) as pool:
+            pool_out = pool.map(abs, range(-5, 5))
+        it = rt_iter.from_range(12, num_shards=2)
+        iter_out = sorted(it.for_each(lambda v: v * 3).gather_sync())
+        for shard in it._shards:
+            rt.kill(shard)
+
+        # 4 x 256 MiB of a GPU task's results out of a 512 MiB store.
+        spill_task = rt.remote(num_gpus=1, num_returns=2)(_spill_rmsnorm)
+        t0 = time.perf_counter()
+        pairs = [spill_task.remote(SEED + 200 + i, CLI_SPILL_ROWS,
+                                   CLI_SPILL_D) for i in range(CLI_SPILLS)]
+        infos = rt.get([p[1] for p in pairs], timeout=600)
+        produce_s = time.perf_counter() - t0
+        spilled = []
+        for root, _, files in os.walk(spill_dir):
+            spilled += [os.path.getsize(os.path.join(root, f))
+                        for f in files]
+        t0 = time.perf_counter()
+        restored = [hashlib.sha256(rt.get(p[0], timeout=600).tobytes())
+                    .hexdigest() for p in pairs]
+        restore_s = time.perf_counter() - t0
+        spill_bytes = CLI_SPILLS * CLI_SPILL_ROWS * CLI_SPILL_D * 2
+        del pairs
+    finally:
+        rt.shutdown()
+        os.environ.pop("TMPDIR", None)
+    stopped, walls["stop"] = _cli(env, "stop")
+    deadline = time.monotonic() + 30
+    while _runtime_procs() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left_after_stop = _runtime_procs()
+    left, procs = _stop_runtime()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    predicted = train_rec["predicted_per_step"]
+    ref = (train_rec["warmup_losses"] + train_rec["losses"])[:CLI_STEPS]
+    losses = [s["loss"] for s in steps]
+    step_ms = sorted(s["step_s"] * 1e3 for s in steps)[CLI_STEPS // 2]
+    (entry,) = held["sample"]
+    mem_line = re.search(r"node \S+ (cuda:\S+): +([\d.]+) MB live",
+                         out["memory_devices"])
+    actors = json.loads(out["list_actors"])
+    launches = {n: sum(s["launches"][n] for s in steps) for n in predicted}
+    launches["rmsnorm_fwd"] += (job_task.get("launches", 0)
+                                + prod["launches"]
+                                + sum(i["launches"] for i in infos))
+    rec = {"phase": "cli", "probe": packages, "gcs_address": addr,
+           "start_output": started.splitlines(),
+           "start_to_gpu_visible_s": start_to_gpu_s,
+           "cli_wall_s": walls,
+           "losses": losses, "train_losses": ref,
+           "step_ms_all": [s["step_s"] * 1e3 for s in steps],
+           "step_ms_median": step_ms,
+           "train_step_ms_median": train_rec["step_ms_median"],
+           "launches_per_step": [s["launches"] for s in steps],
+           "sampled": entry, "actor_memory_allocated": held["allocated"],
+           "cli_memory_line": mem_line.group(0) if mem_line else None,
+           "summary_devices": summary["devices"],
+           "gpu_back_after_kill_s": gpu_back_s,
+           "gpu_readings_after_kill": readings,
+           "job": {"state": job_state, "submit_to_succeeded_s": job_s,
+                   "task": job_task},
+           "queue": {"items": len(items), "max_ulp_vs_plain": queue_ulp,
+                     "bit_equal_to_the_actors": queue_digests_equal,
+                     "launches": prod["launches"]},
+           "pool": pool_out, "iter": iter_out,
+           "spill": {"backend": "UriStorage (file://)"
+                     if packages["pyarrow"] != "absent" else "local files",
+                     "results_bytes": spill_bytes,
+                     "spilled_files": len(spilled),
+                     "spilled_bytes": sum(spilled),
+                     "produce_s": produce_s,
+                     "produce_gb_s": spill_bytes / produce_s / 1e9,
+                     "restore_s": restore_s,
+                     "restore_gb_s": spill_bytes / restore_s / 1e9},
+           "launches": launches,
+           "processes_after_rt_stop": left_after_stop,
+           "workers_after_shutdown": left,
+           "runtime_procs_after_zygote_stop": procs}
+    emit(rec)
+    print(json.dumps({"cli_walls_s": walls}), flush=True)
+    print(json.dumps({"cli_card_bytes": {"sampled": entry["live_bytes"],
+                                         "actor_own": held["allocated"]}}),
+          flush=True)
+    check(losses == ref, f"the actor's losses {losses} != train's {ref}")
+    bad = [s["launches"] for s in steps
+           if s["launches"] != {n: int(c) for n, c in predicted.items()}]
+    check(not bad, f"launches per step {bad} != predicted {predicted}")
+    check(held["device_name"] == device_name,
+          f"the actor ran on {held['device_name']}")
+    check(entry["device"] == f"cuda:{held['visible']}",
+          f"the sample names {entry['device']}, the actor holds card "
+          f"{held['visible']}")
+    check(entry["live_bytes"] == held["allocated"]
+          > LLAMA2_1B_STATE_BYTES,
+          f"sampled {entry['live_bytes']} B, the actor holds "
+          f"{held['allocated']} B")
+    check([d["live_bytes"] for d in summary["devices"]
+           if d["device"] == entry["device"]] == [held["allocated"]],
+          f"memory_summary: {summary['devices']}")
+    check(mem_line is not None and mem_line.group(1) == entry["device"]
+          and float(mem_line.group(2)) == round(held["allocated"] / 1e6, 1),
+          f"rt memory --devices: {out['memory_devices']}")
+    check([a["state"] for a in actors if a["class_name"] == "CliTrainer"]
+          == ["ALIVE"], f"rt list actors: {actors}")
+    check("  0/1 GPU" in out["status"], f"the actor did not hold the card: "
+          f"{out['status']}")
+    check(f"== actor pid={held['pid']}" in out["stack"]
+          and "in hold" in out["stack"],
+          f"rt stack shows no hold in the actor: {out['stack'][-3000:]}")
+    check(f"trace {trace_id}: 3 spans" in out["trace"]
+          and "cli.train_step" in out["trace"]
+          and "cli.driver_step" in out["trace"],
+          f"rt trace: {out['trace']}")
+    check(sum(1 for e in timeline if e["name"] == "step") >= CLI_STEPS,
+          "the timeline lacks the steps' events")
+    check("hbm " in out["top"], f"rt top shows no card memory: {out['top']}")
+    check(gpu_back_s is not None and not gpu_fell,
+          f"the GPU after the kill: {readings}")
+    check(job_state == "SUCCEEDED", f"the job ended {job_state}: "
+          f"{job_logs[-2000:]}")
+    check(job_task.get("launches") == 1 and job_task.get("ulp", 99) <= 1
+          and job_task.get("marker") == marker
+          and job_task.get("token") == token
+          and job_task.get("device") == device_name,
+          f"the job's task: {job_task}")
+    check(len(items) == CLI_QUEUE_ITEMS and queue_digests_equal
+          and queue_ulp <= 1 and prod["launches"] == CLI_QUEUE_ITEMS,
+          f"the queue: {rec['queue']}")
+    check(pool_out == [abs(v) for v in range(-5, 5)], f"Pool: {pool_out}")
+    check(iter_out == [3 * v for v in range(12)], f"iter: {iter_out}")
+    check(restored == [i["sha256"] for i in infos],
+          "a restored result differs from what its task returned")
+    check(len(spilled) >= 2, f"{len(spilled)} results spilled out of "
+          f"the {CLI_STORE_BYTES} B store")
+    check(all(i["launches"] == 1 for i in infos), f"spill tasks: {infos}")
+    check(not left_after_stop, f"processes after rt stop: {left_after_stop}")
+    check(not left and not procs, f"left after the phase: {left} {procs}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3202,6 +3672,7 @@ def main() -> int:
     tune_a_launches, tune_b_launches = run(phase_tune, train, name)
     dag_launches = run(phase_dag, name)
     cluster_launches = run(phase_cluster, name)
+    cli_launches = run(phase_cli, train, name)
     emit({"phase": "timing", "seconds": seconds})
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "ray_tpu") or m.startswith(("jax.",
@@ -3222,7 +3693,8 @@ def main() -> int:
                              "tune_a": tune_a_launches["rmsnorm_fwd"],
                              "tune_b": tune_b_launches["rmsnorm_fwd"],
                              "dag": dag_launches,
-                             "cluster": cluster_launches},
+                             "cluster": cluster_launches,
+                             "cli": cli_launches["rmsnorm_fwd"]},
         "max_abs_err": max_abs,
         "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -3245,7 +3717,8 @@ def main() -> int:
             "launches_by_path": {"train": train_launches[kname],
                                  "trainer": trainer_launches[kname],
                                  "tune_a": tune_a_launches[kname],
-                                 "tune_b": tune_b_launches[kname]},
+                                 "tune_b": tune_b_launches[kname],
+                                 "cli": cli_launches[kname]},
             "max_abs_err": train_err[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library"]["ms"],

@@ -200,6 +200,7 @@ class GcsServer:
         # actors
         r("register_actor", self.h_register_actor)
         r("actor_ready", self.h_actor_ready)
+        r("actor_unplaceable", self.h_actor_unplaceable)
         r("get_actor", self.h_get_actor)
         r("get_named_actor", self.h_get_named_actor)
         r("list_actors", self.h_list_actors)
@@ -1626,13 +1627,14 @@ class GcsServer:
         if not pg:
             return {"ok": False}
         if pg["state"] == "CREATED":
+            # The bundles come back in the advisory view only through the
+            # node's own report (h_resource_update): its raylet frees a
+            # bundle's unused share at once and the rest when the workers
+            # holding it end. Crediting them here showed a card free that
+            # a worker still held until the next heartbeat took it back.
             for i, node_id in enumerate(pg["bundle_nodes"]):
                 info = self.nodes.get(node_id)
                 if info and info["state"] == "ALIVE":
-                    for k, v in pg["bundles"][i].items():
-                        info["resources_available"][k] = (
-                            info["resources_available"].get(k, 0) + v
-                        )
                     node_conn = self.node_conns.get(node_id)
                     if node_conn:
                         await node_conn.push(

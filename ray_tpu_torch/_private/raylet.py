@@ -2570,7 +2570,7 @@ class Raylet:
                 return self.store.create(obj, size)
             except ObjectStoreFullError:
                 n = await self._spill_until(
-                    get_config().object_spilling_low_water
+                    get_config().object_spilling_low_water, room_for=size
                 )
                 # A concurrent spill (shared _spill_lock) may have freed
                 # room between our failed create and this pass — always
@@ -2596,14 +2596,20 @@ class Raylet:
             await asyncio.sleep(0.02)
         return False
 
-    async def _spill_until(self, target_utilization: float) -> int:
-        """Spill pinned primaries (oldest first) until below the target."""
+    async def _spill_until(self, target_utilization: float,
+                           room_for: int = 0) -> int:
+        """Spill pinned primaries (oldest first) until below the target
+        and, for a put that found the store full, until `room_for` bytes
+        are free: an object above 1 - target of the store never fits
+        beside another one below the target."""
         async with self._spill_lock:
             spilled = 0
             storage = self._get_storage()
             loop = asyncio.get_event_loop()
             for oid in list(self._primary_pins):
-                if self._utilization() <= target_utilization:
+                st = self.store.stats()
+                if (st["used_bytes"] <= target_utilization * st["heap_size"]
+                        and st["heap_size"] - st["used_bytes"] >= room_for):
                     break
                 obj = ObjectID(oid)
                 view = self.store.get(obj)
@@ -2640,7 +2646,8 @@ class Raylet:
     async def h_spill_objects(self, d, conn):
         """A client's put hit ObjectStoreFull: make room."""
         cfg = get_config()
-        n = await self._spill_until(cfg.object_spilling_low_water)
+        n = await self._spill_until(cfg.object_spilling_low_water,
+                                    room_for=d.get("size", 0))
         return {"ok": True, "spilled": n}
 
     async def h_restore_spilled(self, d, conn):
@@ -2864,11 +2871,13 @@ class Raylet:
 
 def main():  # pragma: no cover - run as subprocess
     import argparse
+    import signal
 
     p = argparse.ArgumentParser()
     p.add_argument("--gcs-host", default="127.0.0.1")
     p.add_argument("--gcs-port", type=int, required=True)
     p.add_argument("--num-cpus", type=float, default=None)
+    p.add_argument("--num-gpus", type=float, default=None)
     p.add_argument("--resources", default="{}")
     p.add_argument("--object-store-memory", type=int, default=None)
     p.add_argument("--head", action="store_true")
@@ -2877,10 +2886,14 @@ def main():  # pragma: no cover - run as subprocess
 
     import json
 
+    from ray_tpu_torch._private.node import resolve_resources
+
+    # Cards are detected as init() detects them (accelerators/gpu.py,
+    # never torch.cuda: the zygote this raylet starts forks every worker).
     resources = json.loads(args.resources)
-    if args.num_cpus is not None:
-        resources["CPU"] = args.num_cpus
-    resources.setdefault("CPU", float(os.cpu_count() or 1))
+    resources = resolve_resources(
+        args.num_cpus if args.num_cpus is not None else resources.get("CPU"),
+        args.num_gpus, resources)
 
     async def run():
         raylet = Raylet(
@@ -2895,7 +2908,14 @@ def main():  # pragma: no cover - run as subprocess
         print(f"RAYLET_PORT={port}", flush=True)
         print(f"RAYLET_NODE_ID={raylet.node_id.hex()}", flush=True)
         print(f"RAYLET_STORE={raylet.store_name}", flush=True)
-        await asyncio.Event().wait()
+        # `rt stop` sends SIGTERM: stop the workers (each forked into a
+        # session of its own, so no process-group signal reaches them)
+        # and the store, then leave; the zygote stops at interpreter exit.
+        stop = asyncio.Event()
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM,
+                                                      stop.set)
+        await stop.wait()
+        await raylet.stop()
 
     asyncio.run(run())
 

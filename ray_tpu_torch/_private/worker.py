@@ -354,6 +354,9 @@ class CoreClient:
         self.raylet: Optional[Connection] = None
         self._actor_cache: Dict[bytes, dict] = {}
         self._actor_conns: Dict[Tuple[str, int], Connection] = {}
+        # Calls of batch frames in flight, by task id: the worker answers
+        # each as it ends (an `actor_call_results` push) or in the reply.
+        self._batch_calls: Dict[bytes, tuple] = {}
         self._actor_locks: Dict[bytes, asyncio.Lock] = {}
         self._actor_events: Dict[bytes, threading.Event] = {}
         self._pins: Dict[bytes, _Pin] = {}
@@ -918,8 +921,9 @@ class CoreClient:
             except ObjectStoreFullError:
                 if attempt == attempts - 1:
                     raise
-                r = self._run(self.raylet.call("spill_objects", {}),
-                              timeout=get_config().spill_rpc_timeout_s)
+                r = self._run(self.raylet.call(
+                    "spill_objects", {"size": so.total_size}),
+                    timeout=get_config().spill_rpc_timeout_s)
                 if not r.get("spilled"):
                     # Nothing spillable right now — concurrent writers may
                     # finish (and become spillable) shortly.
@@ -2090,7 +2094,8 @@ class CoreClient:
         key = (info["address"], info["port"])
         conn = self._actor_conns.get(key)
         if conn is None or conn._closed:
-            conn = self._run(connect_coro(self.loop, info["address"], info["port"]))
+            conn = self._run(connect(info["address"], info["port"],
+                                     push_handler=self._on_actor_push))
             self._actor_conns[key] = conn
         return conn
 
@@ -2172,9 +2177,19 @@ class CoreClient:
         key = (info["address"], info["port"])
         conn = self._actor_conns.get(key)
         if conn is None or conn._closed:
-            conn = await connect(info["address"], info["port"])
+            conn = await connect(info["address"], info["port"],
+                                 push_handler=self._on_actor_push)
             self._actor_conns[key] = conn
         return conn
+
+    def _on_actor_push(self, channel: str, payload) -> None:
+        """Results of batch-frame calls that ended before their frame."""
+        if channel != "actor_call_results":
+            return
+        for task_id, result in payload["results"]:
+            entry = self._batch_calls.pop(task_id, None)
+            if entry is not None:
+                self._complete_task(entry[0], result, entry[1])
 
     @staticmethod
     def _conn_actor_seqs(conn, actor_id_b: bytes):
@@ -2190,7 +2205,8 @@ class CoreClient:
     async def _actor_call_group(self, calls):
         """Send a burst of pipelined calls to one actor as batch frames:
         seqs are assigned contiguously under the actor lock, the receiver
-        executes the run in order with one executor hop per batch."""
+        executes the run in order with one executor hop per batch and
+        answers each call as it ends (`_on_actor_push`)."""
         batch_max = get_config().actor_call_batch_max
         actor_id = calls[0][0]
         lock = self._actor_locks.setdefault(actor_id.binary(), asyncio.Lock())
@@ -2201,6 +2217,8 @@ class CoreClient:
             if self._lc_pending:
                 for _, _, _spec, _, _ in chunk:
                     self._lc_close_submit_buffer(_spec)
+            for _, request, spec, futures, _ in chunk:
+                self._batch_calls[request["task_id"]] = (spec, futures)
             try:
                 async with lock:
                     conn = await self._actor_conn_for_call(actor_id)
@@ -2213,43 +2231,44 @@ class CoreClient:
                         timeout=None,
                     ))
                 resp = await call_task
-            except (ConnectionLost, OSError):
-                # Actor may be restarting: fall back to the per-call retry
-                # machinery, which re-resolves the actor and burns one
-                # attempt for the loss we just observed. retries==0 calls
-                # may already have executed — at-most-once forbids a resend.
-                self._actor_cache.pop(actor_id.binary(), None)
-                err = ActorUnavailableError(
-                    f"actor {actor_id.hex()} connection lost"
-                )
-                for aid, request, spec, futures, retries in chunk:
-                    if retries == 0:
-                        self._release_borrows(spec)
-                        for f in futures:
-                            if not f.done():
-                                f.set_exception(err)
-                        continue
-                    request.pop("seq", None)
-                    spawn(self._actor_call_with_retries(
-                        aid, request, spec, futures,
-                        retries - 1 if retries > 0 else retries))
+            except BaseException as e:  # noqa: BLE001 — to each call
+                # Calls a push already answered are done.
+                chunk = [c for c in chunk
+                         if self._batch_calls.pop(c[1]["task_id"], None)]
+                self._fail_actor_chunk(actor_id, chunk, e)
                 continue
-            except (ActorDiedError, ActorUnavailableError) as e:
-                for _, _, spec, futures, _ in chunk:
+            for (_, request, spec, futures, _), result in zip(
+                    chunk, resp["results"]):
+                if self._batch_calls.pop(request["task_id"], None):
+                    self._complete_task(spec, result, futures)
+
+    def _fail_actor_chunk(self, actor_id, chunk, e: BaseException) -> None:
+        if isinstance(e, (ConnectionLost, OSError)):
+            # Actor may be restarting: fall back to the per-call retry
+            # machinery, which re-resolves the actor and burns one
+            # attempt for the loss we just observed. retries==0 calls
+            # may already have executed — at-most-once forbids a resend.
+            self._actor_cache.pop(actor_id.binary(), None)
+            err = ActorUnavailableError(
+                f"actor {actor_id.hex()} connection lost"
+            )
+            for aid, request, spec, futures, retries in chunk:
+                if retries == 0:
                     self._release_borrows(spec)
                     for f in futures:
                         if not f.done():
-                            f.set_exception(e)
-                continue
-            except BaseException as e:  # noqa: BLE001
-                for _, _, spec, futures, _ in chunk:
-                    self._release_borrows(spec)
-                    for f in futures:
-                        if not f.done():
-                            f.set_exception(e)
-                continue
-            for (_, _, spec, futures, _), result in zip(chunk, resp["results"]):
-                self._complete_task(spec, result, futures)
+                            f.set_exception(err)
+                    continue
+                request.pop("seq", None)
+                spawn(self._actor_call_with_retries(
+                    aid, request, spec, futures,
+                    retries - 1 if retries > 0 else retries))
+            return
+        for _, _, spec, futures, _ in chunk:
+            self._release_borrows(spec)
+            for f in futures:
+                if not f.done():
+                    f.set_exception(e)
 
     async def _actor_call_with_retries(self, actor_id, request, spec, futures, retries):
         """Send an ordered actor call, retrying across restarts.
@@ -2392,10 +2411,6 @@ def _rebuild_task_error(result) -> TaskError:
         result.get("tb") or result.get("error", ""),
         cause,
     )
-
-
-async def connect_coro(loop, host, port):
-    return await connect(host, port)
 
 
 def make_task_error(exc: BaseException) -> dict:

@@ -65,6 +65,50 @@ class _CallerQueue:
         self.draining = False
 
 
+class _BatchReplies:
+    """Answers each call of an `actor_call_batch` frame when that call
+    ends. Results that end while calls of the frame still run go to the
+    caller at once, in one `actor_call_results` push per loop tick; the
+    frame's reply carries the rest, with None where a push carried the
+    result. A burst stays one request and, on an ordered actor, one
+    executor hop."""
+
+    def __init__(self, conn, calls, futs):
+        self._conn = conn
+        self._task_ids = [c["task_id"] for c in calls]
+        self._futs = futs
+        self._running = len(futs)
+        self._ended: list = []
+        self._pushed: set = set()
+        self._sends: list = []
+        for i, fut in enumerate(futs):
+            fut.add_done_callback(lambda _f, i=i: self._on_end(i))
+
+    def _on_end(self, i: int) -> None:
+        self._running -= 1
+        if self._running == 0:
+            return  # the reply carries it, and any not pushed yet
+        self._ended.append(i)
+        if len(self._ended) == 1:
+            asyncio.get_event_loop().call_soon(self._push)
+
+    def _push(self) -> None:
+        ended, self._ended = self._ended, []
+        if self._running == 0:
+            return
+        self._pushed.update(ended)
+        self._sends.append(spawn(self._conn.push("actor_call_results", {
+            "results": [[self._task_ids[i], self._futs[i].result()]
+                        for i in ended]})))
+
+    async def rest(self) -> list:
+        """The reply's results, once every push has been written ahead
+        of it on the connection."""
+        await asyncio.gather(*self._sends)
+        return [None if i in self._pushed else f.result()
+                for i, f in enumerate(self._futs)]
+
+
 class ActorState:
     def __init__(self, actor_id: bytes, instance: Any, max_concurrency: int):
         self.actor_id = actor_id
@@ -103,8 +147,12 @@ class WorkerProcess:
         _n_exec = max(4, get_config().max_workers_per_node)
         self._boot_stamp("init_config")
         self.executor = concurrent.futures.ThreadPoolExecutor(
-            max_workers=_n_exec
+            max_workers=_n_exec, thread_name_prefix="rt-exec"
         )
+        # Threads alive before the hosted actor's creation: any other
+        # thread not named "rt-" (the runtime's own, some started lazily
+        # inside the actor's calls) is the actor's.
+        self._threads_before_actor: set = set()
         self._boot_stamp("init_executor")
         self.loop: Optional[asyncio.AbstractEventLoop] = None
         self._direct_lock = asyncio.Lock()  # one leased task runs at a time
@@ -156,6 +204,9 @@ class WorkerProcess:
 
     async def run(self):
         self.loop = asyncio.get_event_loop()
+        # The runtime's blocking lookups (an actor's address) run here.
+        self.loop.set_default_executor(concurrent.futures.ThreadPoolExecutor(
+            thread_name_prefix="rt-loop"))
         port = await self.rpc.start()
         self._boot_stamp("rpc_up")
         self.raylet_conn = await connect(
@@ -481,6 +532,8 @@ class WorkerProcess:
 
     # -- actor lifecycle --------------------------------------------------
     async def _create_actor(self, payload):
+        self._threads_before_actor = set(threading.enumerate())
+
         def do_create():
             confine_process_to_gpus(payload.get("gpu_ids") or [])
             cls = self.client.fn_manager.fetch(payload["cls_key"])
@@ -543,8 +596,22 @@ class WorkerProcess:
                 async with actor.sema:
                     return await self._invoke_actor_method(actor, d)
             # Ordered path: execute strictly by per-caller sequence number.
+            caller = d.get("caller", b"")
+            q = actor.queues.setdefault(caller, _CallerQueue())
+            if not q.draining and not q.pending and d["seq"] == q.next_seq:
+                # Next in order and alone: run it here. Calls arriving
+                # meanwhile queue behind it and drain apart, so this reply
+                # never waits for them.
+                q.draining = True
+                q.next_seq += 1
+                try:
+                    return await self._invoke_actor_method(actor, d)
+                finally:
+                    q.draining = False
+                    if q.pending:
+                        spawn(self._drain_ordered(actor, caller))
             fut = self._enqueue_ordered(actor, d)
-            await self._drain_ordered(actor, d.get("caller", b""))
+            spawn(self._drain_ordered(actor, caller))
             return await fut
         finally:
             self._active_actor_calls -= 1
@@ -560,23 +627,28 @@ class WorkerProcess:
             )
             return {"results": [err for _ in calls]}
         self._active_actor_calls += len(calls)
-        try:
-            if actor.max_concurrency > 1:
-                async def one(c):
-                    async with actor.sema:
-                        return await self._invoke_actor_method(actor, c)
+        async def one(c):
+            async with actor.sema:
+                return await self._invoke_actor_method(actor, c)
 
-                return {"results": await asyncio.gather(*[one(c) for c in calls])}
-            futs = [self._enqueue_ordered(actor, c) for c in calls]
-            await self._drain_ordered(actor, calls[0].get("caller", b""))
-            return {"results": await asyncio.gather(*futs)}
+        try:
+            ordered = actor.max_concurrency <= 1
+            futs = [self._enqueue_ordered(actor, c) if ordered
+                    else asyncio.ensure_future(one(c)) for c in calls]
+            replies = _BatchReplies(conn, calls, futs)
+            if ordered:
+                spawn(self._drain_ordered(actor, calls[0].get("caller", b"")))
+            await asyncio.gather(*futs)
+            return {"results": await replies.rest()}
         finally:
             self._active_actor_calls -= len(calls)
 
     async def h_release_actor(self, d, conn):
         """Tear down the hosted actor so this worker returns to the pool
         (clean rt.kill only). Refuses — forcing a process kill — when any
-        call is running or queued: a thread mid-call cannot be stopped."""
+        call is running or queued, or when a thread the actor started
+        outlives its teardown: neither can be stopped from outside, and
+        either would run on beside the worker's next actor."""
         actor = self.actor
         if actor is None or actor.actor_id != d["actor_id"]:
             return {"recycled": True}
@@ -594,9 +666,26 @@ class WorkerProcess:
                 import gc
 
                 gc.collect()
+            return self._actor_threads_left()
 
-        await self.loop.run_in_executor(self.executor, cleanup)
-        return {"recycled": True}
+        left = await self.loop.run_in_executor(self.executor, cleanup)
+        return {"recycled": not left}
+
+    def _actor_threads_left(self, grace_s: float = 0.2) -> list:
+        """Names of the threads the torn-down actor started that are
+        still alive, after up to `grace_s` for them to end."""
+        deadline = time.monotonic() + grace_s
+        left = []
+        for t in threading.enumerate():
+            if (t in self._threads_before_actor or t.name.startswith("rt-")
+                    # a native thread (torch's autograd device threads)
+                    # that ran Python: not started by the actor's code
+                    or isinstance(t, threading._DummyThread)):
+                continue
+            t.join(max(0.0, deadline - time.monotonic()))
+            if t.is_alive():
+                left.append(t.name)
+        return left
 
     def _enqueue_ordered(self, actor: ActorState, d):
         q = actor.queues.setdefault(d.get("caller", b""), _CallerQueue())
@@ -626,22 +715,37 @@ class WorkerProcess:
                     if not run[0][1].done():
                         run[0][1].set_result(result)
                 else:
-                    results = await self._invoke_actor_run(
-                        actor, [r for r, _ in run]
-                    )
-                    for (_, rfut), res in zip(run, results):
-                        if not rfut.done():
-                            rfut.set_result(res)
+                    await self._invoke_actor_run(actor, run)
         finally:
             q.draining = False
 
-    async def _invoke_actor_run(self, actor: ActorState, reqs) -> list:
-        """Execute an ordered run of calls in a single executor hop."""
+    async def _invoke_actor_run(self, actor: ActorState, run) -> None:
+        """Execute an ordered run of (call, future) pairs in a single
+        executor hop. Each future resolves as its call ends, through a
+        hop back to the loop that the calls ending before the loop runs
+        share, so a call never waits for a slower one after it."""
         from ray_tpu_torch.util import tracing
 
+        ended: list = []
+        ended_lock = threading.Lock()
+
+        def resolve():
+            with ended_lock:
+                items = ended[:]
+                ended.clear()
+            for rfut, res in items:
+                if not rfut.done():
+                    rfut.set_result(res)
+
+        def post(rfut, res):
+            with ended_lock:
+                ended.append((rfut, res))
+                first = len(ended) == 1
+            if first:
+                self.loop.call_soon_threadsafe(resolve)
+
         def do_run():
-            results = []
-            for d in reqs:
+            for d, rfut in run:
                 self._record_task_event(d["task_id"], d["method"], "RUNNING")
                 lc = {} if d.get("sampled") else None
                 try:
@@ -671,10 +775,8 @@ class WorkerProcess:
                         t0, w0 = time.monotonic(), time.time()
                     spec = {"task_id": d["task_id"],
                             "num_returns": d.get("num_returns", 1)}
-                    results.append(
-                        self._package_returns(spec, value,
-                                              bool(d.get("xlang")))
-                    )
+                    result = self._package_returns(spec, value,
+                                                   bool(d.get("xlang")))
                     if lc is not None:
                         lc["result_store"] = [
                             w0, max(0.0, time.monotonic() - t0)
@@ -684,10 +786,11 @@ class WorkerProcess:
                         d["task_id"], d["method"], "FINISHED")
                 except BaseException as e:  # noqa: BLE001 — to the caller
                     self._record_task_event(d["task_id"], d["method"], "FAILED")
-                    results.append(make_task_error(e))
-            return results
+                    result = make_task_error(e)
+                post(rfut, result)
 
-        return await self.loop.run_in_executor(self.executor, do_run)
+        await self.loop.run_in_executor(self.executor, do_run)
+        resolve()
 
     async def _invoke_actor_method(self, actor: ActorState, d) -> dict:
         self._record_task_event(d["task_id"], d["method"], "RUNNING")

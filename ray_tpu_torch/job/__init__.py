@@ -1,10 +1,9 @@
-"""Job submission SDK (the port of ray_tpu/job/__init__.py).
+"""Job submission SDK + CLI glue (the port of ray_tpu/job/__init__.py).
 
 Analog of the reference's job submission stack (dashboard/modules/job/:
 ``JobSubmissionClient.submit_job`` sdk.py:39,129, ``JobManager``
 job_manager.py:525, per-job ``JobSupervisor`` actor :140, CLI
-``ray job submit``; the port's ``rt job`` CLI comes with ROADMAP A2b.5).
-Here the GCS keeps the job table and the head raylet acts as supervisor:
+``ray job submit``). Here the GCS keeps the job table and the head raylet acts as supervisor:
 it spawns the detached driver subprocess, streams its stdout/stderr back
 to the GCS, and reports terminal state — so a submitted job outlives the
 submitting client.
@@ -12,6 +11,9 @@ submitting client.
 
 from __future__ import annotations
 
+import argparse
+import json
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -132,3 +134,48 @@ class JobSubmissionClient:
             time.sleep(poll)
         raise TimeoutError(f"job {submission_id} still {state} after {timeout}s")
 
+
+def _submit_args(rest: List[str]) -> argparse.Namespace:
+    """`rt job submit [--working-dir DIR] [--runtime-env-json JSON] --
+    <entrypoint>` (reference: `ray job submit`'s options of these names;
+    the JAX package's `rt job submit` takes the entrypoint alone)."""
+    p = argparse.ArgumentParser(prog="rt job submit")
+    p.add_argument("--working-dir")
+    p.add_argument("--runtime-env-json")
+    p.add_argument("entrypoint", nargs=argparse.REMAINDER)
+    args = p.parse_args(rest)
+    args.entrypoint = [a for a in args.entrypoint if a != "--"]
+    return args
+
+
+def job_cli(args, address: str):
+    """Back end of `rt job ...` (scripts/scripts.py)."""
+    client = JobSubmissionClient(address)
+    try:
+        cmd = args.job_command
+        if cmd == "submit":
+            sub = _submit_args(args.args)
+            if not sub.entrypoint:
+                sys.exit("usage: rt job submit [--working-dir DIR] "
+                         "[--runtime-env-json JSON] -- <entrypoint command>")
+            env = json.loads(sub.runtime_env_json or "{}")
+            if sub.working_dir:
+                env["working_dir"] = sub.working_dir
+            sid = client.submit_job(entrypoint=" ".join(sub.entrypoint),
+                                    runtime_env=env or None)
+            print(f"submitted {sid}")
+            return
+        rest = [a for a in args.args if a != "--"]
+        if cmd == "status":
+            print(client.get_job_status(rest[0]))
+        elif cmd == "logs":
+            print(client.get_job_logs(rest[0]), end="")
+        elif cmd == "list":
+            for j in client.list_jobs():
+                sid = j.get("submission_id") or j["job_id"][:12]
+                print(f"{sid}\t{j['state']}\t{j.get('entrypoint', '')}")
+        elif cmd == "stop":
+            ok = client.stop_job(rest[0])
+            print("stopped" if ok else "stop failed")
+    finally:
+        client.close()

@@ -44,6 +44,7 @@ def request_flush(delay_s: float | None = None) -> None:
         if _flush_timer is not None:
             return
         t = threading.Timer(delay_s, _timer_fire)
+        t.name = "rt-profiling-flush"  # the runtime's, not an actor's
         t.daemon = True
         _flush_timer = t
     t.start()

@@ -28,8 +28,6 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
-from ray_tpu_torch._private.not_ported import not_ported
-
 _tls = threading.local()
 _enabled: Optional[bool] = None
 
@@ -182,4 +180,32 @@ def get_trace(trace_id: str, address: Optional[str] = None) -> List[dict]:
     """Assemble one trace's spans (finished only) from the task-event
     stream, parent-linked: [{"name", "span_id", "parent_id", "ts",
     "dur_s", "kind"}]."""
-    raise not_ported("the state API that get_trace reads")
+    from ray_tpu_torch.util.state.api import StateApiClient, fetch_task_events
+
+    client = StateApiClient(address)
+    try:
+        events = fetch_task_events(client.call)
+    finally:
+        client.close()
+    starts: Dict[bytes, dict] = {}
+    spans: List[dict] = []
+    for ev in events:
+        if ev.get("type") != "TRACE_SPAN":
+            continue
+        extra = ev.get("extra", {})
+        if extra.get("trace_id") != trace_id:
+            continue
+        if ev["state"] == "RUNNING":
+            starts[ev["task_id"]] = ev
+        elif ev["state"] == "FINISHED" and ev["task_id"] in starts:
+            start = starts.pop(ev["task_id"])
+            spans.append({
+                "name": ev.get("name", ""),
+                "span_id": extra["span_id"],
+                "parent_id": extra.get("parent_id", ""),
+                "kind": extra.get("kind", ""),
+                "ts": start["ts"],
+                "dur_s": max(0.0, ev["ts"] - start["ts"]),
+            })
+    spans.sort(key=lambda s: s["ts"])
+    return spans

@@ -159,7 +159,10 @@ def test_gpu_quantity_validation(quantity, ok):
 
 
 def test_visible_ids_helpers(monkeypatch):
-    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    # setenv first, so monkeypatch restores the variable as it found it
+    # (absent included) after the helper below writes os.environ.
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES")
     assert GPUAcceleratorManager.get_current_process_visible_accelerator_ids() is None
     GPUAcceleratorManager.set_current_process_visible_accelerator_ids(["0", "1"])
     assert os.environ["CUDA_VISIBLE_DEVICES"] == "0,1"
@@ -268,7 +271,10 @@ def test_confine_refuses_to_move_a_made_context(monkeypatch):
     context exists it cannot be moved to other cards."""
     import types
 
-    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    # setenv first, so monkeypatch restores the variable as it found it
+    # after confine_process_to_gpus writes os.environ.
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES")
     gpu_mod.confine_process_to_gpus(["1"])
     assert os.environ["CUDA_VISIBLE_DEVICES"] == "1"
     assert gpu_mod.granted_gpu_ids() == ["1"]
