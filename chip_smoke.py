@@ -146,6 +146,35 @@ prints no result line:
            spilled out of the store (through UriStorage to a file:// URI
            where pyarrow is present) and read back bit-equal; `rt stop`
            leaves no process.
+  data     the Data library on the card, in one runtime. data_train: the
+           train phase's first 12 batches made again on the card, as 96
+           int64 rows of 1025 tokens with a `row` column, written by
+           write_parquet to 4 files of 24 rows, read back by read_parquet
+           through one map_batches stage into TorchTrainer(datasets=)
+           with one GPU worker (NCCL of one), whose loop pulls each batch
+           inside its step from get_dataset_shard("train")
+           .iter_torch_batches(batch_size=8, prefetch_batches=2) onto its
+           card and hands the iterator to StepProfiler.attach_feed: every
+           row once, the 12 losses bit-equal to a bare loop on the same
+           batches in the order they arrived (the train phase's own when
+           that is the source order), launches a step as the train
+           phase's, every read, write and map task FINISHED in
+           list_tasks; step ms beside the train phase's, the feed's
+           stalls and the flight recorder's data share. data_infer:
+           512 x 1024 int32 tokens (seed + 2) in 64 blocks scored by
+           map_batches on ActorPoolStrategy(size=1) with
+           resources={"GPU": 1}, each actor building llama2-1b (bf16,
+           full depth, seed 0) on its granted card: 512 rows once, 8
+           rows' mean NLLs within 1e-3 of the driver's own forward, 33
+           RMSNorm and 16 flash forwards a forward, the GPU back after
+           the pool closes; rows/s and the pool's set-up. data_feed:
+           7,000 224 x 224 x 3 uint8 images (1.05 GB) made in
+           map_batches tasks from range(7000, parallelism=28) as a
+           tensor column, with their byte sums, through the default
+           256 MiB store (spilling) and iter_torch_batches(batch_size=256)
+           onto the card: every row once, the byte sums computed on the
+           card equal to the column; GB/s beside a pinned copy_ of the
+           same bytes, stalls, h2d s and the bytes the raylet spilled.
 
 Then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -3631,6 +3660,518 @@ def phase_cli(train_rec, device_name):
     return launches
 
 
+# -- data: the Data library feeding the card ---------------------------------
+# (a) data_train: phase_train's first 12 batches as 96 rows of 1025 tokens,
+# written to 4 parquet files, read back, through one map_batches stage and
+# TorchTrainer(datasets=) onto the worker's card; (b) data_infer: batch
+# scoring of 512 x 1024 tokens on a pool of one GPU actor; (c) data_feed:
+# 7,000 ImageNet-shaped images (1.05 GB) through the default 256 MiB store
+# onto the driver's card.
+DATA_TRAIN_STEPS = TRAIN_WARMUP + TRAIN_STEPS   # phase_train's 12 batches
+DATA_TRAIN_FILES = 4
+DATA_INFER_ROWS, DATA_INFER_SEQ, DATA_INFER_BLOCKS = 512, 1024, 64
+# A block's NLLs from the pool against the driver's own forward of the
+# same rows on the same card.
+DATA_INFER_RTOL = 1e-3
+DATA_FEED_ROWS, DATA_FEED_BLOCKS, DATA_FEED_BATCH = 7000, 28, 256
+IMAGE_SHAPE = (224, 224, 3)
+
+
+def _train_cfg():
+    from ray_tpu_torch.models import configs
+
+    return dataclasses.replace(configs.llama2_1b, max_seq=TRAIN_SEQ,
+                               remat=True, remat_policy="dots_nobatch")
+
+
+def _token_windows(batch):
+    """The map_batches stage after read_parquet: the list column of token
+    rows becomes one fixed-shape tensor column."""
+    return {"tokens": np.stack(list(batch["tokens"])).astype(np.int64),
+            "row": batch["row"]}
+
+
+def _data_train_loop(config):
+    """phase_train's step in a TorchTrainer worker, each batch pulled from
+    the dataset shard through iter_torch_batches onto the worker's card
+    inside the step (so a wait for it is the step's data phase)."""
+    import os
+    import sys
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private.accelerators.gpu import granted_gpu_ids
+    from ray_tpu_torch.models import init_params, loss_fn
+    from ray_tpu_torch.train.torch import get_device
+
+    device = get_device()
+    cfg = _train_cfg()
+    counters = _train_launch_counters()
+    info = {"device": str(device),
+            "device_name": torch.cuda.get_device_name(device),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "granted": granted_gpu_ids(),
+            "jax_or_ray_tpu_modules": sorted(
+                m for m in sys.modules if m in ("jax", "ray_tpu")
+                or m.startswith(("jax.", "ray_tpu.")))}
+    params = init_params(cfg, seed=SEED, device=device)
+    leaves = _flat_params(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    n_params = sum(t.numel() for t in leaves)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    prof = train.StepProfiler(flops_per_step=6.0 * n_params * tokens)
+    feed = train.get_dataset_shard("train").iter_torch_batches(
+        batch_size=TRAIN_BATCH, prefetch_batches=2)
+    prof.attach_feed(feed)
+    for i in range(DATA_TRAIN_STEPS):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with prof.step(tokens=tokens) as s:
+            batch = next(feed)
+            with prof.phase("compute"):
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(params, batch["tokens"], cfg)
+                loss.backward()
+                opt.step()
+            s.fence(loss)
+        step_s = time.perf_counter() - t0
+        rec = prof.records()[-1]
+        metrics = {"step": i + 1, "loss": loss.item(), "step_s": step_s,
+                   "launches": {n: fn.launches
+                                for n, fn in counters.items()},
+                   "rows": batch["row"].tolist(),
+                   "batch": [str(batch["tokens"].device),
+                             str(batch["tokens"].dtype),
+                             list(batch["tokens"].shape)],
+                   "wall_s": rec["wall_s"], "data_s": rec["data_s"],
+                   "feed_wait_s": rec.get("feed_wait_s")}
+        if i == 0:
+            metrics["info"] = info
+        train.report(metrics)
+    leftover = next(feed, None)
+    train.report({"final": True, "leftover": leftover is not None,
+                  "feed": feed.stats.snapshot()})
+
+
+def _bare_losses(tokens, order) -> list:
+    """phase_train's step in this process on the batches `order` names
+    (row ids per step), from the same weights and AdamW."""
+    import torch
+
+    from ray_tpu_torch.models import init_params, loss_fn
+
+    cfg = _train_cfg()
+    params = init_params(cfg, seed=SEED, device="cuda")
+    leaves = _flat_params(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    losses = []
+    for rows in order:
+        batch = torch.from_numpy(tokens[rows]).cuda()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, batch, cfg)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    del params, leaves, opt
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _task_states(rt, names) -> dict:
+    """name -> {state: count} for the named tasks in list_tasks."""
+    from ray_tpu_torch.util import state
+
+    out = {n: {} for n in names}
+    for t in state.list_tasks(limit=100_000):
+        n = t["name"].rsplit(".", 1)[-1]
+        if n in out:
+            out[n][t["state"]] = out[n].get(t["state"], 0) + 1
+    return out
+
+
+def _data_train(rt, rd, train_rec, tmp) -> dict:
+    import os
+
+    import pyarrow.parquet as pq
+    import torch
+
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    cfg = _train_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    batches = torch.randint(0, cfg.vocab_size,
+                            (TRAIN_WARMUP + TRAIN_STEPS + 1, TRAIN_BATCH,
+                             TRAIN_SEQ + 1), generator=gen, device="cuda")
+    tokens = batches[:DATA_TRAIN_STEPS].reshape(
+        -1, TRAIN_SEQ + 1).cpu().numpy()
+    del batches
+    n_rows = len(tokens)
+    t0 = time.perf_counter()
+    out_dir = os.path.join(tmp, "tokens")
+    files = rd.from_numpy({"tokens": tokens, "row": np.arange(n_rows)},
+                          parallelism=DATA_TRAIN_FILES).write_parquet(out_dir)
+    write_s = time.perf_counter() - t0
+    file_rows = sorted(pq.read_metadata(f).num_rows for f in files)
+    ds = rd.read_parquet(out_dir).map_batches(_token_windows)
+    trainer = TorchTrainer(
+        _data_train_loop,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(name="data_train", storage_path=tmp),
+        datasets={"train": ds})
+    t0 = time.time()
+    result = trainer.fit()
+    fit_s = time.time() - t0
+    check(result.error is None, f"the fit failed: {result.error}")
+    _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after the data fit")
+    hist = [m for m in result.metrics_history if "step" in m]
+    final = next(m for m in result.metrics_history if m.get("final"))
+    order = [m["rows"] for m in hist]
+    flat = sum(order, [])
+    in_source_order = flat == list(range(n_rows))
+    if in_source_order:
+        bare = train_rec["warmup_losses"] + train_rec["losses"]
+        bare_from = "phase_train"
+    else:
+        bare = _bare_losses(tokens, order)
+        bare_from = "a bare loop in the driver, in the order received"
+    losses = [m["loss"] for m in hist]
+    # Tasks of the pipeline: the 4 reads of from_numpy and the 4 of
+    # read_parquet, the 4 writes and the 4 map_batches tasks.
+    names = ("_run_read_task", "_run_write_task", "_apply_fused")
+    want_tasks = {"_run_read_task": {"FINISHED": 2 * DATA_TRAIN_FILES},
+                  "_run_write_task": {"FINISHED": DATA_TRAIN_FILES},
+                  "_apply_fused": {"FINISHED": DATA_TRAIN_FILES}}
+    deadline = time.monotonic() + 30
+    while True:
+        tasks = _task_states(rt, names)
+        if tasks == want_tasks or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    predicted = train_rec["predicted_per_step"]
+    timed = hist[TRAIN_WARMUP:]
+    step_ms = sorted(m["step_s"] for m in timed)[len(timed) // 2] * 1e3
+    wall = sum(m["wall_s"] for m in timed)
+    feed = final["feed"]
+    rec = {"path": "data_train", "model": "llama2-1b", "dtype": "bfloat16",
+           "n_layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "rows": n_rows, "files": len(files), "file_rows": file_rows,
+           "write_parquet_s": write_s, "fit_s": fit_s,
+           "rows_in_arrival_order": order,
+           "in_source_order": in_source_order,
+           "losses": losses, "bare_losses": bare, "bare_from": bare_from,
+           "bit_equal": losses == bare,
+           "step_ms_median": step_ms,
+           "phase_train_step_ms_median": train_rec["step_ms_median"],
+           "step_ms_all": [m["step_s"] * 1e3 for m in hist],
+           "feed": feed, "leftover_batch": final["leftover"],
+           "flight_recorder_data_share": (
+               sum(m["data_s"] for m in timed) / wall if wall else None),
+           "flight_recorder_data_s": [m["data_s"] for m in hist],
+           "batch_on_card": hist[0]["batch"],
+           "worker": hist[0]["info"], "tasks": tasks,
+           "launches": {n: sum(m["launches"][n] for m in hist)
+                        for n in predicted}}
+    emit({"phase": "data", **rec})
+    print(f"data_train: {'bit-equal' if rec['bit_equal'] else 'DIFFERENT'}"
+          f" losses against {bare_from}", flush=True)
+    check(file_rows == [n_rows // DATA_TRAIN_FILES] * DATA_TRAIN_FILES,
+          f"parquet files of {file_rows} rows")
+    check(sorted(flat) == list(range(n_rows)),
+          f"the rows did not arrive once each: {order}")
+    check(rec["bit_equal"], f"the losses {losses} differ from {bare_from}'s"
+          f" {bare}")
+    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+    bad = [(m["step"], m["launches"]) for m in hist
+           if m["launches"] != predicted]
+    check(not bad, f"launches per step differ from {predicted}: {bad}")
+    check(hist[0]["batch"][:2] == ["cuda:0", "torch.int64"],
+          f"the batch was not on the card: {hist[0]['batch']}")
+    check(not final["leftover"] and feed["batches"] == DATA_TRAIN_STEPS,
+          f"the feed: {feed}")
+    check(tasks == want_tasks, f"list_tasks shows {tasks}, not {want_tasks}")
+    info = hist[0]["info"]
+    check(len(info["granted"]) == 1 and info["visible"] == info["granted"][0],
+          f"the worker was not confined to its card: {info}")
+    check(info["jax_or_ray_tpu_modules"] == [],
+          f"the worker loaded {info['jax_or_ray_tpu_modules']}")
+    return rec
+
+
+class _Scorer:
+    """map_batches' pool class: llama2-1b (bf16, full depth, init_params
+    seed SEED) on the card this actor was granted; each block's rows get
+    their mean next-token NLL in f32, and the kernel launches of the
+    forward that scored them."""
+
+    def __init__(self):
+        import os
+
+        import torch
+
+        from ray_tpu_torch._private.accelerators.gpu import granted_gpu_ids
+        from ray_tpu_torch.models import configs, init_params
+
+        t0 = time.perf_counter()
+        self.cfg = dataclasses.replace(configs.llama2_1b,
+                                       max_seq=DATA_INFER_SEQ)
+        self.params = init_params(self.cfg, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        self.init_s = time.perf_counter() - t0
+        self.visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        self.granted = ",".join(granted_gpu_ids())
+        self.device = torch.cuda.get_device_name(0)
+        self.counters = _train_launch_counters()
+
+    def __call__(self, batch):
+        import torch
+
+        t0 = time.time()
+        for fn in self.counters.values():
+            fn.launches = 0
+        tok = torch.from_numpy(np.array(batch["tokens"])).cuda().long()
+        nll = _score(self.params, tok, self.cfg).cpu().numpy()
+        n = len(nll)
+        return {"row": batch["row"], "nll": nll,
+                "rms_launches": np.full(n, self.counters["rmsnorm_fwd"]
+                                        .launches),
+                "flash_launches": np.full(n, self.counters["flash_fwd"]
+                                          .launches),
+                "call_start": np.full(n, t0),
+                "call_s": np.full(n, time.time() - t0),
+                "init_s": np.full(n, self.init_s),
+                "visible": [self.visible] * n,
+                "granted": [self.granted] * n,
+                "device": [self.device] * n}
+
+
+def _score(params, tok, cfg):
+    """Mean next-token NLL per row, in f32."""
+    import torch
+
+    from ray_tpu_torch.models import forward
+    from ray_tpu_torch.ops.cross_entropy import softmax_cross_entropy
+
+    with torch.no_grad():
+        logits, _ = forward(params, tok, cfg)
+        return softmax_cross_entropy(logits[:, :-1], tok[:, 1:]).mean(dim=1)
+
+
+def _data_infer(rt, rd, device_name) -> dict:
+    import dataclasses as dc
+
+    import torch
+
+    from ray_tpu_torch.models import configs, init_params
+
+    rng = np.random.default_rng(SEED + 2)
+    vocab = configs.llama2_1b.vocab_size
+    tokens = rng.integers(0, vocab, (DATA_INFER_ROWS, DATA_INFER_SEQ),
+                          dtype=np.int32)
+    ds = rd.from_numpy({"tokens": tokens,
+                        "row": np.arange(DATA_INFER_ROWS)},
+                       parallelism=DATA_INFER_BLOCKS).map_batches(
+        _Scorer, compute=rd.ActorPoolStrategy(size=1),
+        resources={"GPU": 1})
+    t0_wall = time.time()
+    t0 = time.perf_counter()
+    out = ds.take_all()
+    wall = time.perf_counter() - t0
+    _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after the pool closed")
+    rows = [r["row"] for r in out]
+    first_call = min(r["call_start"] for r in out)
+    calls = {r["call_start"]: r["call_s"] for r in out}
+    check_rows = list(range(8))
+    by_row = {r["row"]: r for r in out}
+    cfg = dc.replace(configs.llama2_1b, max_seq=DATA_INFER_SEQ)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    want = _score(params, torch.from_numpy(tokens[check_rows]).cuda().long(),
+                  cfg).cpu().numpy()
+    del params
+    torch.cuda.empty_cache()
+    got = np.array([by_row[r]["nll"] for r in check_rows], dtype=np.float32)
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    infos = sorted({(r["visible"], r["granted"], r["device"]) for r in out})
+    rms = sorted({r["rms_launches"] for r in out})
+    flash = sorted({r["flash_launches"] for r in out})
+    L = cfg.n_layers
+    rec = {"path": "data_infer", "model": "llama2-1b", "dtype": "bfloat16",
+           "rows": len(out), "seq": DATA_INFER_SEQ,
+           "blocks": DATA_INFER_BLOCKS, "pool_size": 1,
+           "wall_s": wall, "rows_per_s": len(out) / wall,
+           "pool_setup_s": first_call - t0_wall,
+           "actor_init_s": out[0]["init_s"],
+           "rows_per_s_after_setup": (len(out) - 8) / max(
+               1e-9, t0_wall + wall - first_call - calls[first_call]),
+           "forwards": len(calls),
+           "forward_ms_median": sorted(calls.values())[len(calls) // 2] * 1e3,
+           "checked_rows": check_rows, "nll_pool": got.tolist(),
+           "nll_driver": want.tolist(), "max_rel": rel,
+           "rtol": DATA_INFER_RTOL, "actor": infos,
+           "rms_launches_per_forward": rms,
+           "flash_launches_per_forward": flash,
+           "launches": {"rmsnorm_fwd": sum(rms) * len(calls),
+                        "flash_fwd": sum(flash) * len(calls)},
+           "gpu_after": rt.available_resources().get("GPU", 0.0)}
+    emit({"phase": "data", **rec})
+    check(sorted(rows) == list(range(DATA_INFER_ROWS)),
+          f"{len(rows)} rows scored, not each of {DATA_INFER_ROWS} once")
+    check(len(calls) == DATA_INFER_BLOCKS, f"{len(calls)} forwards")
+    check(all(np.isfinite(r["nll"]) for r in out), "an NLL is not finite")
+    check(rel <= DATA_INFER_RTOL, f"the pool's NLLs {got} differ from the "
+          f"driver's {want} by {rel}")
+    check(rms == [2 * L + 1] and flash == [L],
+          f"launches per forward: rmsnorm {rms}, flash {flash}")
+    check(len(infos) == 1 and infos[0][2] == device_name
+          and infos[0][0] == infos[0][1] and infos[0][0],
+          f"the pool actor's card (visible, granted, name): {infos}")
+    return rec
+
+
+def _feed_images(batch):
+    """map_batches' stage of data_feed: ImageNet-shaped uint8 images made
+    from the seed and the block's first row id, with each row's byte sum."""
+    ids = np.asarray(batch["id"], dtype=np.int64)
+    rng = np.random.default_rng(SEED + 3 + int(ids[0]))
+    images = rng.integers(0, 256, (len(ids),) + IMAGE_SHAPE, dtype=np.uint8)
+    return {"image": images, "id": ids,
+            "sum": images.reshape(len(ids), -1).sum(axis=1, dtype=np.int64)}
+
+
+def _raylet_spilled() -> dict:
+    from ray_tpu_torch._private import worker as worker_mod
+
+    client = worker_mod.get_client()
+    return client._run(client.raylet.call("get_info", {}),
+                       timeout=30)["spilled"]
+
+
+def _pinned_copy_gb_s(nbytes: int, reps: int = 20) -> float:
+    """A pinned host buffer copied onto the card: the H2D bound the feed
+    is held against."""
+    import torch
+
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    host.fill_(1)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    return nbytes * reps / (time.perf_counter() - t0) / 1e9
+
+
+def _data_feed(rt, rd) -> dict:
+    import torch
+
+    from ray_tpu_torch._private.config import get_config
+
+    spilled0 = _raylet_spilled()
+    ds = rd.range(DATA_FEED_ROWS, parallelism=DATA_FEED_BLOCKS).map_batches(
+        _feed_images)
+    t0 = time.perf_counter()
+    feed = ds.iter_torch_batches(batch_size=DATA_FEED_BATCH)
+    ids, bad, n_batches, devices = [], 0, 0, set()
+    first = None
+    for b in feed:
+        if first is None:
+            first = time.perf_counter() - t0
+        img = b["image"]
+        sums = img.reshape(img.shape[0], -1).sum(dim=1, dtype=torch.int64)
+        bad += int((sums != b["sum"]).sum())
+        ids.append(b["id"])
+        devices |= {str(t.device) for t in b.values()}
+        n_batches += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ids = torch.cat(ids).cpu().numpy()
+    stats = feed.stats.snapshot()
+    spilled1 = _raylet_spilled()
+    image_bytes = DATA_FEED_ROWS * int(np.prod(IMAGE_SHAPE))
+    bound = _pinned_copy_gb_s(DATA_FEED_BATCH * int(np.prod(IMAGE_SHAPE)))
+    rec = {"path": "data_feed", "rows": len(ids), "batches": n_batches,
+           "image_shape": list(IMAGE_SHAPE), "image_bytes": image_bytes,
+           "store_bytes": get_config().object_store_memory,
+           "wall_s": wall, "first_batch_s": first,
+           "feed_gb_s": stats["h2d_bytes"] / wall / 1e9,
+           "feed_gb_s_after_first_batch": (
+               stats["h2d_bytes"] * (n_batches - 1) / n_batches
+               / (wall - first) / 1e9),
+           "pinned_copy_gb_s": bound, "feed": stats,
+           "h2d_gb_s_while_dispatching": (stats["h2d_bytes"] / stats["h2d_s"]
+                                          / 1e9 if stats["h2d_s"] else None),
+           "spilled": {"objects": spilled1["objects"] - spilled0["objects"],
+                       "bytes": spilled1["bytes"] - spilled0["bytes"]},
+           "devices": sorted(devices), "sum_mismatches": bad}
+    emit({"phase": "data", **rec})
+    check(sorted(ids.tolist()) == list(range(DATA_FEED_ROWS)),
+          f"{len(ids)} rows arrived, not each of {DATA_FEED_ROWS} once")
+    check(bad == 0, f"{bad} rows' byte sums on the card differ")
+    check(devices == {"cuda:0"}, f"batches on {devices}")
+    check(stats["batches"] == n_batches
+          and stats["h2d_bytes"] >= image_bytes, f"the feed: {stats}")
+    return rec
+
+
+def phase_data(train_rec, device_name):
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="rt_data_")
+    os.environ["TMPDIR"] = tmp
+    rt.init(num_cpus=4)
+    try:
+        seconds = {}
+        t0 = time.perf_counter()
+        trained = _data_train(rt, rd, train_rec, tmp)
+        seconds["data_train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        inferred = _data_infer(rt, rd, device_name)
+        seconds["data_infer"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fed = _data_feed(rt, rd)
+        seconds["data_feed"] = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+    left, procs = _stop_runtime()
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "data", "seconds": seconds, "card": device_name,
+          "summary": {
+              "data_train_step_ms_median": trained["step_ms_median"],
+              "phase_train_step_ms_median": trained[
+                  "phase_train_step_ms_median"],
+              "data_train_feed": trained["feed"],
+              "data_train_flight_recorder_data_share": trained[
+                  "flight_recorder_data_share"],
+              "data_infer_rows_per_s": inferred["rows_per_s"],
+              "data_infer_pool_setup_s": inferred["pool_setup_s"],
+              "data_feed_gb_s": fed["feed_gb_s"],
+              "data_feed_pinned_copy_gb_s": fed["pinned_copy_gb_s"],
+              "data_feed_stalls": fed["feed"]["stall_count"],
+              "data_feed_h2d_s": fed["feed"]["h2d_s"],
+              "data_feed_spilled_bytes": fed["spilled"]["bytes"]}})
+    check(not left and not procs, f"left after the phase: {left} {procs}")
+    return trained["launches"], inferred["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -3673,6 +4214,7 @@ def main() -> int:
     dag_launches = run(phase_dag, name)
     cluster_launches = run(phase_cluster, name)
     cli_launches = run(phase_cli, train, name)
+    data_train_launches, data_infer_launches = run(phase_data, train, name)
     emit({"phase": "timing", "seconds": seconds})
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "ray_tpu") or m.startswith(("jax.",
@@ -3694,7 +4236,9 @@ def main() -> int:
                              "tune_b": tune_b_launches["rmsnorm_fwd"],
                              "dag": dag_launches,
                              "cluster": cluster_launches,
-                             "cli": cli_launches["rmsnorm_fwd"]},
+                             "cli": cli_launches["rmsnorm_fwd"],
+                             "data_train": data_train_launches["rmsnorm_fwd"],
+                             "data_infer": data_infer_launches["rmsnorm_fwd"]},
         "max_abs_err": max_abs,
         "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -3718,11 +4262,15 @@ def main() -> int:
                                  "trainer": trainer_launches[kname],
                                  "tune_a": tune_a_launches[kname],
                                  "tune_b": tune_b_launches[kname],
-                                 "cli": cli_launches[kname]},
+                                 "cli": cli_launches[kname],
+                                 "data_train": data_train_launches[kname]},
             "max_abs_err": train_err[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library"]["ms"],
             "shape": t["shape"], "dtype": t["dtype"]})
+        if kname in data_infer_launches:
+            records[-1]["launches_by_path"]["data_infer"] = \
+                data_infer_launches[kname]
         if kname in FLASH_DESIGN:
             records[-1]["design"] = FLASH_DESIGN[kname]
     for r in records:

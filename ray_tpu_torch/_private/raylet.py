@@ -282,6 +282,7 @@ class Raylet:
         self._metric_tasks_dispatched = 0
         self._metric_tasks_failed = 0
         self._metric_objects_spilled = 0
+        self._metric_bytes_spilled = 0
         # Scheduler queue instrumentation (control-plane profiler): how
         # many dispatch passes ran, how many head-of-queue scans they
         # did, how many leases were granted — plus last-pass gauges, so
@@ -2616,6 +2617,7 @@ class Raylet:
                 if view is None:
                     self._primary_pins.pop(oid, None)
                     continue
+                nbytes = memoryview(view).nbytes
                 try:
                     uri = await loop.run_in_executor(
                         None, storage.spill, oid, view
@@ -2635,6 +2637,7 @@ class Raylet:
                     continue
                 self._spilled[oid] = uri
                 self._metric_objects_spilled += 1
+                self._metric_bytes_spilled += nbytes
                 spilled += 1
                 await self.gcs.call(
                     "object_spilled",
@@ -2707,6 +2710,8 @@ class Raylet:
             "resources_total": self.resources_total,
             "resources_available": self.resources_available,
             "store_stats": self.store.stats(),
+            "spilled": {"objects": self._metric_objects_spilled,
+                        "bytes": self._metric_bytes_spilled},
             "workers": [
                 {
                     "worker_id": w.worker_id,
@@ -2732,6 +2737,7 @@ class Raylet:
             "rt_raylet_tasks_dispatched_total": self._metric_tasks_dispatched,
             "rt_raylet_tasks_failed_total": self._metric_tasks_failed,
             "rt_raylet_objects_spilled_total": self._metric_objects_spilled,
+            "rt_raylet_bytes_spilled_total": self._metric_bytes_spilled,
             "rt_raylet_dispatch_passes_total": self._metric_dispatch_passes,
             "rt_raylet_dispatch_scans_total": self._metric_dispatch_scans,
             "rt_raylet_lease_grants_total": self._metric_lease_grants,

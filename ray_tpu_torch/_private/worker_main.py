@@ -263,17 +263,18 @@ class WorkerProcess:
         spawn(self._flush_events_loop())
         await asyncio.Event().wait()
 
-    def _record_task_event(self, task_id: bytes, name: str, state: str):
-        import time
-
+    def _record_task_event(self, task_id: bytes, name: str, state: str,
+                           type: str = "ACTOR_TASK", job_id: bytes = b""):
+        """Queue one task state event for the flush loop (one dict; no
+        RPC per task)."""
         self._task_events.append(
             {
                 "task_id": task_id,
                 "name": name,
-                "job_id": b"",
+                "job_id": job_id,
                 "node_id": self.node_id,
                 "worker_id": self.worker_id,
-                "type": "ACTOR_TASK",
+                "type": type,
                 "state": state,
                 "ts": time.time(),
             }
@@ -345,7 +346,7 @@ class WorkerProcess:
             # have queued on the lock behind the call that crossed the
             # threshold — it must refuse, not run-and-be-killed).
             return await self.loop.run_in_executor(
-                self.executor, self._execute_accounted, d
+                self.executor, self._execute_accounted, d, True
             )
 
     async def h_run_tasks_batch(self, d, conn):
@@ -368,7 +369,7 @@ class WorkerProcess:
                 # queue time (predecessors in the run + lock wait).
                 if s.get("sampled"):
                     s["_lc_queue_wait"] = time.monotonic() - t_recv
-                out.append(self._execute_accounted(s))
+                out.append(self._execute_accounted(s, True))
             return out
 
         async with self._direct_lock:
@@ -376,13 +377,25 @@ class WorkerProcess:
         return {"results": results}
 
 
-    def _execute_accounted(self, spec) -> dict:
+    def _execute_accounted(self, spec, direct: bool = False) -> dict:
         """Execute a task with max_calls bookkeeping. Runs on an
         executor thread; the GIL covers the counter dict, and the retire
-        coroutine is handed to the event loop thread-safely."""
+        coroutine is handed to the event loop thread-safely.
+
+        `direct`: the spec came straight from its owner on a leased
+        worker, so the raylet never saw it and this worker records its
+        RUNNING and FINISHED/FAILED events (the raylet records the ones
+        it dispatches itself)."""
         if self._retiring:
             return _retired_result()
+        if direct:
+            ev = (spec["task_id"], spec.get("name") or "")
+            job = spec.get("job_id", b"")
+            self._record_task_event(*ev, "RUNNING", "NORMAL_TASK", job)
         result = self._execute_task(spec)
+        if direct:
+            state = "FINISHED" if result.get("status") == "ok" else "FAILED"
+            self._record_task_event(*ev, state, "NORMAL_TASK", job)
         limit = spec.get("max_calls") or 0
         key = spec.get("fn_key")
         if limit and key is not None:

@@ -1,7 +1,7 @@
 """Train ingestion configuration (the port of
-ray_tpu/train/data_config.py; duck-typed: a dataset with
-`streaming_split` arrives with ROADMAP A6, until then the trainer refuses
-one and every other object is broadcast).
+ray_tpu/train/data_config.py; duck-typed: a ray_tpu_torch.data Dataset,
+or anything with `streaming_split`, is split, every other object is
+broadcast).
 
 Analog of the reference's DataConfig
 (python/ray/train/_internal/data_config.py): decides which datasets are

@@ -304,10 +304,12 @@ class StepProfiler:
 
     def attach_feed(self, source: Any) -> "StepProfiler":
         """Wire data-wait accounting to an input pipeline: `source` is a
-        FeedStats, or anything with feed_stats()/stats (DataIterator,
-        _DevicePrefetcher). Each step records the delta of the feed's
-        consumer wait; steps with no explicit "data" phase attribute the
-        delta to data_s automatically."""
+        FeedStats, or anything with feed_stats()/stats — a
+        ray_tpu_torch.data DataIterator (its newest iter_torch_batches
+        feed) or the _DevicePrefetcher that iter_torch_batches returns.
+        Each step records the delta of the feed's consumer wait; steps
+        with no explicit "data" phase attribute the delta to data_s
+        automatically."""
         self._feed = source
         self._feed_last = self._feed_snapshot() or {}
         return self

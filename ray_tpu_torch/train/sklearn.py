@@ -16,7 +16,6 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 import ray_tpu_torch as rt
-from ray_tpu_torch._private.not_ported import not_ported
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.config import Result, RunConfig, ScalingConfig
 from ray_tpu_torch.train.trainer import BaseTrainer
@@ -25,10 +24,21 @@ MODEL_KEY = "model"
 
 
 def _to_xy(ds, label_column: str):
-    """Pass through (X, y) / dict-of-arrays as feature matrix + label
-    vector (a Dataset of the data library waits for ROADMAP A6)."""
+    """Materialize a ray_tpu_torch.data Dataset (or pass through (X, y) /
+    dict-of-arrays) into feature matrix + label vector."""
     if isinstance(ds, tuple):
         return np.asarray(ds[0]), np.asarray(ds[1])
+    if hasattr(ds, "take_all"):  # Dataset
+        rows = ds.take_all()
+        if not rows:
+            raise ValueError("dataset split is empty")
+        y = np.asarray([r[label_column] for r in rows])
+        feats = [
+            {k: v for k, v in r.items() if k != label_column} for r in rows
+        ]
+        keys = sorted(feats[0])
+        X = np.asarray([[f[k] for k in keys] for f in feats])
+        return X, y
     if isinstance(ds, dict):
         y = np.asarray(ds[label_column])
         keys = sorted(k for k in ds if k != label_column)
@@ -82,8 +92,8 @@ class SklearnTrainer(BaseTrainer):
     """Fit + score an sklearn estimator in a remote worker.
 
     datasets: {"train": ..., "valid": ..., ...} where each entry is a
-    dict of column arrays or an (X, y) tuple (a Dataset of the data
-    library, ROADMAP A6, is refused). Extra splits are scored
+    ray_tpu_torch.data Dataset (rows of feature columns + label_column),
+    a dict of column arrays or an (X, y) tuple. Extra splits are scored
     with estimator.score and land in metrics as "<name>_score".
     """
 
@@ -101,8 +111,6 @@ class SklearnTrainer(BaseTrainer):
         super().__init__(scaling_config=scaling_config,
                          run_config=run_config)
         assert "train" in datasets, 'datasets must include a "train" split'
-        if any(hasattr(ds, "take_all") for ds in datasets.values()):
-            raise not_ported("datasets", "A6")
         self.estimator = estimator
         self.datasets = datasets
         self.label_column = label_column

@@ -11,8 +11,10 @@ training_loop :432). Differences by design:
     the reference's always-through-Tune layering (base_trainer.py:839).
   * TorchTrainer (train/torch.py) runs the loop on a torch.distributed
     process group: NCCL when the workers hold GPUs, gloo otherwise.
-  * A dataset of ray_tpu's data library (one with `streaming_split`)
-    waits for ROADMAP A6: `datasets=` refuses one.
+  * `datasets=` takes datasets of ray_tpu_torch.data: each split one
+    reaches the workers as streaming_split DataIterators (DataConfig),
+    re-split when an elastic resize changes the gang, and a worker feeds
+    its card with `get_dataset_shard(name).iter_torch_batches()`.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-from ray_tpu_torch._private.not_ported import not_ported
 from ray_tpu_torch.train.backend import BackendConfig
 from ray_tpu_torch.train.backend_executor import (
     BackendExecutor,
@@ -196,9 +197,6 @@ class DataParallelTrainer(BaseTrainer):
         self.train_loop_config = train_loop_config or {}
         self.backend_config = backend_config or BackendConfig()
         self.datasets = datasets or {}
-        for ds in self.datasets.values():
-            if callable(getattr(ds, "streaming_split", None)):
-                raise not_ported("datasets", "A6")
         from ray_tpu_torch.train.data_config import DataConfig
 
         self.dataset_config = dataset_config or DataConfig()

@@ -5,8 +5,10 @@ resource (detection, and a num_gpus=1 actor that launches the RMSNorm
 kernel in its own worker process), llm_deployment through serve.run
 from a num_gpus=1 replica, a one-worker TorchTrainer on an NCCL group of
 one, a checkpoint of CUDA bf16 tensors, Tune trials that hold the card
-(and one that finds none and raises) and a compiled DAG with a GPU
-stage. Each test skips without a
+(and one that finds none and raises), a compiled DAG with a GPU
+stage, and the data library's feed to the card (iter_torch_batches with
+prefetch 0 and 2, bit-equal to the CPU's) and a GPU actor pool's
+map_batches. Each test skips without a
 CUDA device. This file imports no JAX, so on a machine with a card and
 without JAX it runs on its own:
 
@@ -755,3 +757,99 @@ def test_compiled_dag_with_a_gpu_stage(cuda_device, monkeypatch):
                               w, 1e-6)
         assert _bf16_ulp_diff(torch.from_numpy(y).cuda(), want) <= 1
         np.testing.assert_allclose(sums, y.astype(np.float64).sum(axis=1))
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_iter_torch_batches_onto_the_card_equal_to_the_cpu(cuda_device,
+                                                           monkeypatch,
+                                                           prefetch):
+    """The feed to the card (pinned copy, the feed's own stream, the
+    event handed to the consumer's stream) gives the CPU feed's batches
+    bit for bit, every tensor on the card this process holds, and its
+    FeedStats count the batches and the bytes copied."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rd
+
+    monkeypatch.delenv("RT_NUM_GPUS", raising=False)
+    rng = np.random.default_rng(0)
+    arrays = {"tok": rng.integers(0, 32000, (100, 33), dtype=np.int64),
+              "img": rng.integers(0, 255, (100, 8, 8, 3), dtype=np.uint8),
+              "row": np.arange(100, dtype=np.int32)}
+    rt.init(num_cpus=2)
+    try:
+        ds = rd.from_numpy(arrays, parallelism=7)
+        cpu = list(ds.iter_torch_batches(batch_size=16, device="cpu",
+                                         prefetch_batches=prefetch))
+        card = []
+        for b in ds.iter_torch_batches(batch_size=16,
+                                       prefetch_batches=prefetch):
+            # Work on the consumer's stream right away, as a step does.
+            card.append({k: (v * 1).cpu() for k, v in b.items()})
+            assert {v.device for v in b.values()} == {
+                torch.device("cuda", torch.cuda.current_device())}
+        stats = ds._last_feed_stats.snapshot() if prefetch else None
+    finally:
+        rt.shutdown()
+    assert len(card) == len(cpu) == 7
+    for a, b in zip(card, cpu):
+        for k in b:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+    if prefetch:
+        assert stats["batches"] == 7
+        assert stats["h2d_bytes"] == sum(v.nbytes for v in arrays.values())
+
+
+def test_gpu_actor_pool_map_batches_runs_on_its_card(cuda_device,
+                                                     monkeypatch):
+    """map_batches(cls, compute=ActorPoolStrategy(size=1),
+    resources={"GPU": 1}): the pool actor holds the card the raylet
+    granted it (CUDA_VISIBLE_DEVICES), computes there, and the card is
+    free again once the pool closes."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rd
+
+    monkeypatch.delenv("RT_NUM_GPUS", raising=False)
+
+    class OnCard:
+        def __init__(self):
+            import os
+
+            from ray_tpu_torch._private.accelerators.gpu import (
+                granted_gpu_ids)
+
+            self.visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+            self.granted = ",".join(granted_gpu_ids())
+
+        def __call__(self, batch):
+            import torch
+
+            x = torch.from_numpy(np.array(batch["x"])).cuda()
+            n = len(x)
+            return {"x": batch["x"], "sq": (x * x).cpu().numpy(),
+                    "device": [str(x.device)] * n,
+                    "visible": [self.visible] * n,
+                    "granted": [self.granted] * n}
+
+    rt.init(num_cpus=2)
+    try:
+        total = rt.cluster_resources()["GPU"]
+        out = rd.from_numpy({"x": np.arange(40, dtype=np.float32)},
+                            parallelism=5).map_batches(
+            OnCard, compute=rd.ActorPoolStrategy(size=1),
+            resources={"GPU": 1}).take_all()
+        deadline = time.monotonic() + 30
+        while (rt.available_resources().get("GPU", 0.0) != total
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        free = rt.available_resources().get("GPU", 0.0)
+    finally:
+        rt.shutdown()
+    assert sorted(r["sq"] for r in out) == [float(i * i) for i in range(40)]
+    assert {r["device"] for r in out} == {"cuda:0"}
+    (pair,) = {(r["visible"], r["granted"]) for r in out}
+    assert pair[0] == pair[1] and pair[0] != ""
+    assert free == total

@@ -229,6 +229,88 @@ def test_tune_dag_and_cluster_modules_import_no_jax_and_no_torch(module):
     assert proc.stdout.strip() == "[]"
 
 
+_DATA_MODULES = ["ray_tpu_torch.data"] + [
+    f"ray_tpu_torch.data.{m}" for m in (
+        "block", "tensor", "aggregate", "datasource", "executor", "feed",
+        "dataset", "iterator", "connectors")]
+
+
+@pytest.mark.parametrize("module", _DATA_MODULES)
+def test_data_modules_import_no_jax_and_no_torch(module):
+    """The data library loads neither JAX nor ray_tpu, and no torch: only
+    iter_torch_batches and its feed to a device import it."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'ray_tpu')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+_DATA_PIPELINE = r"""
+import os, sys, tempfile
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import ray_tpu_torch as rt
+import ray_tpu_torch.data as rd
+from ray_tpu_torch.util import state
+
+d = tempfile.mkdtemp()
+for i in range(3):
+    pq.write_table(pa.table({"x": np.arange(i * 10, i * 10 + 10)}),
+                   os.path.join(d, f"part{i}.parquet"))
+
+
+def probe(r):
+    return {"x": r["x"], "torch": "torch" in sys.modules}
+
+
+def mapped_torch(pid):
+    with open(f"/proc/{pid}/maps") as f:
+        return any("libtorch" in line for line in f)
+
+
+rt.init(num_cpus=2)
+try:
+    ds = rd.read_parquet(d).map(probe)
+    rows = ds.take_all()
+    (it,) = ds.streaming_split(1)
+    split_rows = list(it.iter_rows())
+    coords = {a["actor_id"] for a in state.list_actors()
+              if a["class_name"].endswith("_SplitCoordinator")}
+    coord = [mapped_torch(w["pid"]) for w in state.list_workers()
+             if w["actor_id"] in coords]
+    it.stop()
+    print("ROWS", len(rows), len(split_rows))
+    print("TASK_TORCH", any(r["torch"] for r in rows + split_rows))
+    print("COORD_TORCH", coord)
+    print("DRIVER_TORCH", "torch" in sys.modules)
+finally:
+    rt.shutdown()
+"""
+
+
+def test_data_pipeline_loads_no_torch(tmp_path):
+    """read -> map -> take_all, and the same through streaming_split: the
+    driver, the read and map tasks and the split coordinator load no
+    torch (the coordinator's process maps no libtorch)."""
+    import os
+
+    script = tmp_path / "pipeline.py"
+    script.write_text(_DATA_PIPELINE)
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = dict(ln.split(" ", 1) for ln in proc.stdout.splitlines()
+                 if ln.split(" ", 1)[0] in ("ROWS", "TASK_TORCH",
+                                            "COORD_TORCH", "DRIVER_TORCH"))
+    assert lines == {"ROWS": "30 30", "TASK_TORCH": "False",
+                     "COORD_TORCH": "[False]", "DRIVER_TORCH": "False"}
+
+
 def test_train_job_and_runtime_env_leave_torch_unloaded():
     code = ("import sys\n"
             "import ray_tpu_torch.train, ray_tpu_torch.job, "

@@ -13,6 +13,10 @@ them; ROADMAP §C, "Fixed"; R4 is in test_torch_spill_uri.py):
   rises once.
 - R5: the GCS did not answer `actor_unplaceable`, so an actor a raylet
   bounced stayed PENDING for good. It is queued again now.
+- R6: a task that ran on a leased worker (every task of a burst after
+  the first that shares a lease key) recorded no task events, so
+  `list_tasks`, `summarize_tasks` and the timeline showed only the first.
+  The worker now records RUNNING and FINISHED or FAILED for each.
 
 Run as a script, it prints the actor call's round trip and a 2000-call
 burst on the runtime that PYTHONPATH selects, so a commit and its parent
@@ -182,6 +186,49 @@ def test_the_gcs_takes_back_an_actor_a_raylet_could_not_place(runtime):
     assert reply == {"ok": True}
     assert state == ["PENDING"]
     rt.kill(a)
+
+
+def test_every_task_of_a_leased_burst_is_listed(runtime):
+    from ray_tpu_torch.util import state
+
+    @rt.remote
+    def leased_ok(i):
+        return i
+
+    @rt.remote(max_retries=0)
+    def leased_bad():
+        raise ValueError("leased failure")
+
+    # One at a time, the first takes the lease and the rest run on it
+    # (run_task_direct); the failure shares the lease key. Then a burst
+    # on the held lease travels as batch frames (run_tasks_batch).
+    n = 24
+    assert [rt.get(leased_ok.remote(i)) for i in range(n)] == list(range(n))
+    with pytest.raises(Exception, match="leased failure"):
+        rt.get(leased_bad.remote())
+    assert rt.get([leased_ok.remote(i) for i in range(n, 2 * n)]) \
+        == list(range(n, 2 * n))
+
+    def seen():
+        tasks = [t for t in state.list_tasks(limit=100_000)
+                 if t["name"].endswith(("leased_ok", "leased_bad"))]
+        return ({(t["name"].rsplit(".", 1)[-1], t["type"], t["state"])
+                 for t in tasks}, len(tasks), tasks)
+
+    deadline = time.monotonic() + 30
+    while True:
+        kinds, count, tasks = seen()
+        if count == 2 * n + 1 or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    assert count == 2 * n + 1, tasks
+    assert kinds == {("leased_ok", "NORMAL_TASK", "FINISHED"),
+                     ("leased_bad", "NORMAL_TASK", "FAILED")}
+    assert all("duration_s" in t for t in tasks)
+    summary = {k.rsplit(".", 1)[-1]: v
+               for k, v in state.summarize_tasks().items()}
+    assert summary["leased_ok"] == {"FINISHED": 2 * n}
+    assert summary["leased_bad"] == {"FAILED": 1}
 
 
 def main():

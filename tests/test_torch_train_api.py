@@ -10,9 +10,9 @@ the two outcomes and the outcome the JAX test asserts. Cases of pure code
 (shard remapping, the resize governor, the flight recorder, backoff) run
 here against both packages. Where the JAX test reaches a module the port
 has not got:
-  * A6 datasets: the port's trainers refuse a dataset with the
-    `not_ported` error (`test_sklearn_trainer_dataset_input`,
-    `test_resnet_dp_from_images`);
+  * A7 models/conv.py: `test_resnet_dp_from_images` asserts that the
+    port's images reach a dataset but that its ResNet is still missing
+    (the trainers' datasets are in tests/test_torch_train_data.py);
   * A5 util.collective: the DCN epoch fence and op deadline become the
     port's own — each gang epoch rendezvouses its torch process group at
     a new address, and a gloo op on a silent peer raises within the
@@ -296,6 +296,24 @@ def _context_loop(config):
                   "local": ctx.get_local_rank()})
 
 
+def sklearn_dataset_input():
+    """tests/test_train.py::test_sklearn_trainer_dataset_input."""
+    from sklearn.tree import DecisionTreeClassifier
+
+    SklearnTrainer = importlib.import_module(
+        pkg + ".train.sklearn").SklearnTrainer
+    rt_data = importlib.import_module(pkg + ".data")
+    rng = np.random.default_rng(1)
+    rows = []
+    for _ in range(120):
+        a, b = rng.normal(), rng.normal()
+        rows.append({"a": a, "b": b, "y": int(a - b > 0)})
+    r = SklearnTrainer(estimator=DecisionTreeClassifier(max_depth=4),
+                       datasets={"train": rt_data.from_items(rows)},
+                       label_column="y").fit()
+    return [r.error is None, r.metrics["train_score"]]
+
+
 def get_context_facade():
     r = Trainer(_context_loop, train_loop_config={"pkg": pkg},
                 scaling_config=train.ScalingConfig(num_workers=2)).fit()
@@ -504,6 +522,7 @@ try:
                  trainer_persists_to_storage_uri),
                 ("torch_trainer_ddp_gloo", torch_trainer_ddp_gloo),
                 ("sklearn_fits", sklearn_fits),
+                ("sklearn_dataset_input", sklearn_dataset_input),
                 ("get_context_facade", get_context_facade),
                 ("rank_death_resumes", rank_death_resumes),
                 ("drain_migration", drain_migration),
@@ -644,32 +663,11 @@ def test_sklearn_trainer_fits_scores_and_checkpoints(results):
     assert out["sklearn_fits"][:5] == [True] * 5
 
 
-class _RowDataset:
-    """Stands in for a dataset of the data library (ROADMAP A6): rows
-    through `take_all`, splits through `streaming_split`."""
-
-    def __init__(self, rows):
-        self.rows = rows
-
-    def take_all(self):
-        return list(self.rows)
-
-    def streaming_split(self, n, equal=True, prefetch_blocks=None):
-        return [_RowDataset(self.rows[i::n]) for i in range(n)]
-
-
-def test_sklearn_trainer_dataset_input():
-    from sklearn.tree import DecisionTreeClassifier
-
-    from ray_tpu_torch.train.sklearn import SklearnTrainer
-
-    rng = np.random.default_rng(1)
-    rows = [{"a": a, "b": b, "y": int(a - b > 0)}
-            for a, b in rng.normal(size=(120, 2))]
-    with pytest.raises(NotImplementedError, match="datasets.*ROADMAP A6"):
-        SklearnTrainer(estimator=DecisionTreeClassifier(max_depth=4),
-                       datasets={"train": _RowDataset(rows)},
-                       label_column="y")
+def test_sklearn_trainer_dataset_input(results):
+    ref, out = results
+    assert out["sklearn_dataset_input"] == ref["sklearn_dataset_input"]
+    ok, train_score = out["sklearn_dataset_input"]
+    assert ok and train_score > 0.85
 
 
 def test_get_context_facade(results):
@@ -677,12 +675,32 @@ def test_get_context_facade(results):
 
 
 @pytest.mark.slow
-def test_resnet_dp_from_images():
+def test_resnet_dp_from_images(tmp_path):
+    """The JAX test trains models/conv.py's ResNet on images read through
+    the data library. The port reads the images and hands the dataset to
+    TorchTrainer; its ResNet (ROADMAP A7) is what is still missing."""
+    import importlib
+
+    from PIL import Image
+
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rtd
     from ray_tpu_torch.train import TorchTrainer
 
-    with pytest.raises(NotImplementedError, match="datasets.*ROADMAP A6"):
-        TorchTrainer(lambda: None,
-                     datasets={"train": _RowDataset([{"image": 0}])})
+    rng = np.random.default_rng(0)
+    for i in range(8):
+        img = rng.integers(0, 255, (16, 16, 3), dtype=np.uint8)
+        Image.fromarray(img).save(tmp_path / f"img_{i % 2}_{i:03d}.png")
+    rt.init(num_cpus=2)
+    try:
+        ds = rtd.read_images(str(tmp_path), parallelism=4)
+        assert ds.count() == 8
+        assert TorchTrainer(lambda: None, datasets={"train": ds}).datasets \
+            == {"train": ds}
+    finally:
+        rt.shutdown()
+    with pytest.raises(ModuleNotFoundError):
+        importlib.import_module("ray_tpu_torch.models.conv")
 
 
 # -- tests/test_train_fault_tolerance.py ----------------------------------
