@@ -175,6 +175,29 @@ prints no result line:
            onto the card: every row once, the byte sums computed on the
            card equal to the column; GB/s beside a pinned copy_ of the
            same bytes, stalls, h2d s and the bytes the raylet spilled.
+  loadgen  `python -m ray_tpu_torch start --head --num-gpus 1` with its
+           dashboard on a free port; serve.run of a deployment holding a
+           ContinuousBatchingEngine of llama3-8b (full width and depth,
+           bf16, seed 0; 8 slots, max_len 5120, prefill chunk 64, 16-token
+           pages, no eos) on the card; `rt loadgen gen` writes the open-
+           loop two-tenant trace (seed 0, 30 s, 1 qps, a 4x flash crowd at
+           10-15 s, Poisson) twice, byte-identical; `rt loadgen run`
+           replays it streaming. Every card ok, matched by rid and with as
+           many chunks as its max_tokens; the CLI exits 0 exactly when the
+           reconciler's gap gate passes; 2 * n_layers + 1 rmsnorm launches
+           a pass in the replica; neither the run's process nor the
+           dashboard's maps libtorch; the dashboard's /healthz, /api/nodes
+           (GPU 1.0), /api/serve (one running replica) and /metrics
+           (loadgen_requests_total summing to the trace, the engine's TTFT
+           histogram, device_hbm_live_bytes equal to the replica's
+           memory_allocated()); every exported loadgen_/serve_ metric on
+           a curated panel or on a panel that generate_dashboard() makes
+           from the replica's metric registry, typed in the exposition as
+           that registry types it; a job POSTed to /api/jobs
+           whose num_gpus=1 task runs the RMSNorm forward SUCCEEDED; `rt
+           stop` leaves no process. Prints offered and achieved QPS,
+           output tokens/s, client TTFB and e2e p50/p99 by tenant, the gap
+           fraction, the server's phase medians and the /metrics scrape.
 
 Then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -2477,7 +2500,8 @@ def rmsnorm_probe():
     import torch
     from ray_tpu_torch.ops.rmsnorm import _rmsnorm_plain, rmsnorm_cuda
 
-    with open("job_data.json") as f:  # from the job's working_dir
+    # from the job's working_dir, or a path its env_vars name
+    with open(os.environ.get("RT_JOB_DATA", "job_data.json")) as f:
         data = json.load(f)
     gen = torch.Generator(device="cuda").manual_seed(data["seed"])
     rows, d = data["shape"]
@@ -3311,7 +3335,7 @@ def phase_cli(train_rec, device_name):
     t0 = time.perf_counter()
     started, walls["start"] = _cli(
         env, "start", "--head", "--num-cpus", "4",
-        "--object-store-memory", str(CLI_STORE_BYTES))
+        "--object-store-memory", str(CLI_STORE_BYTES), "--no-dashboard")
     with open(os.path.join(tmp, "ray_tpu_torch", "session.json")) as f:
         session = json.load(f)
     addr = session["gcs_address"]
@@ -4172,6 +4196,437 @@ def phase_data(train_rec, device_name):
     return trained["launches"], inferred["launches"]
 
 
+# -- loadgen: rt loadgen's open-loop trace against llama3-8b behind Serve ----
+# A head from `rt start --head` with its dashboard; a user deployment that
+# holds a ContinuousBatchingEngine of llama3-8b (full width and depth, bf16,
+# seed 0) on the card; `rt loadgen gen` writes the trace twice and `rt
+# loadgen run` replays it, streaming; the dashboard is read while the run's
+# metrics are in the GCS; a job is POSTed to the dashboard's REST API.
+LOADGEN_APP = "lg"
+LOADGEN_TRACE = ("--seed", "0", "--duration", "30", "--qps", "1.0",
+                 "--flash", "10:5:4", "--process", "poisson")
+LOADGEN_DURATION_S = 30.0
+# 8 slots x 5120 tokens: the default blend's longest prompt (4,096) and
+# output (1,024) fit; a multiple of the 64-token chunk and 16-token page.
+LOADGEN_ENGINE = {"num_slots": 8, "max_len": 5120, "prefill_chunk": 64,
+                  "kv_mode": "paged", "page_size": 16, "eos_id": None}
+
+# `rt loadgen run` as `python -m ray_tpu_torch` runs it, and the cards it
+# stamped written to $RT_LOADGEN_CARDS (the CLI prints only their summary).
+LOADGEN_RUN = r"""
+import json, os, runpy, sys
+import ray_tpu_torch.loadgen as lg
+
+_run_trace = lg.run_trace
+
+
+def run_trace(header, records, call_fn, **kw):
+    result = _run_trace(header, records, call_fn, **kw)
+    with open(os.environ["RT_LOADGEN_CARDS"], "w") as f:
+        json.dump([c.to_doc() for c in result.cards], f)
+    return result
+
+
+lg.run_trace = run_trace
+sys.argv = ["rt"] + sys.argv[1:]
+runpy.run_module("ray_tpu_torch", run_name="__main__")
+"""
+
+
+def _loadgen_deployment_cls():
+    """The trace's deployment: the serve phase's counting LLMReplica,
+    whose `__call__(request)` takes a trace record, builds a prompt of
+    `prompt_tokens` ids from a generator seeded by its index, and streams
+    the engine's tokens. A generator's body runs in the replica's stream
+    thread, where the request's observatory context is set, so the
+    engine's stamps land on the request's card."""
+
+    class TraceLLM(_serve_replica_cls()):
+        def __call__(self, request):
+            import numpy as np
+
+            rng = np.random.default_rng(request["i"])
+            yield from self.stream(
+                rng.integers(0, self.engine.cfg.vocab_size,
+                             request["prompt_tokens"]),
+                request["max_tokens"])
+
+        def counts(self):
+            """Launches and passes since reset_counts(); the engine's
+            step split and TPOT over its life (the warm-up included)."""
+            out = super().counts()
+            st = self.engine.stats()
+            out.update(n_layers=self.engine.cfg.n_layers,
+                       kv_pages=self.engine.kv_pages,
+                       max_len=self.engine.max_len, steps=st["steps"],
+                       prefill_chunks=st["prefill_chunks"],
+                       timing=st["timing"], tpot_s=st["latency"]["tpot"])
+            return out
+
+        def sample(self):
+            """Card bytes as util.memory publishes them, and this
+            process's own memory_allocated() at the same moment."""
+            import torch
+
+            from ray_tpu_torch.util import memory, metrics
+
+            self._settled()
+            torch.cuda.synchronize()
+            sample = memory.sample_once()
+            allocated = torch.cuda.memory_allocated()
+            metrics._flush_once()
+            return {"sample": sample, "allocated": allocated}
+
+        def board(self):
+            """The expressions of generate_dashboard() as the serving
+            process builds it from its own metric registry, and the type
+            that registry gives each serve_/loadgen_ metric."""
+            from ray_tpu_torch.dashboard.grafana import generate_dashboard
+            from ray_tpu_torch.util import metrics
+
+            with metrics._registry_lock:
+                types = {m.info["name"]: type(m).__name__.lower()
+                         for m in metrics._registry
+                         if m.info["name"].startswith(("serve_",
+                                                       "loadgen_"))}
+            return {"exprs": [t["expr"] for p in
+                              generate_dashboard()["panels"]
+                              for t in p["targets"]],
+                    "types": types}
+
+    return TraceLLM
+
+
+def _http(url, data=None, timeout=60):
+    """(status, content type, body text, wall seconds) of one request."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"}
+        if data is not None else {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body, status, ctype = r.read().decode(), r.status, \
+                r.headers.get("Content-Type")
+    except urllib.error.HTTPError as e:
+        body, status, ctype = e.read().decode(), e.code, \
+            e.headers.get("Content-Type")
+    return status, ctype, body, time.perf_counter() - t0
+
+
+def _prom_samples(text, name):
+    """{label text: value} of a metric's samples in an exposition."""
+    import re
+
+    out = {}
+    for m in re.finditer(rf"^{re.escape(name)}(\{{[^}}]*\}})? (\S+)$", text,
+                         re.M):
+        out[m.group(1) or ""] = float(m.group(2))
+    return out
+
+
+def _pid_alive(pid) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(") ", 1)[1][0] != "Z"
+    except OSError:
+        return False
+
+
+def phase_loadgen(device_name):
+    import gc
+    import os
+    import pathlib
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="rt_loadgen_")
+    env = {k: v for k, v in os.environ.items() if k != "RT_NUM_GPUS"}
+    env["TMPDIR"] = tmp
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in [os.path.dirname(os.path.abspath(__file__)),
+                    env.get("PYTHONPATH", "")] if p)
+    walls = {}
+    started, walls["start"] = _cli(env, "start", "--head", "--num-gpus", "1",
+                                   "--num-cpus", "4", "--dashboard-port", "0")
+    with open(os.path.join(tmp, "ray_tpu_torch", "session.json")) as f:
+        session = json.load(f)
+    addr, dash_port = session["gcs_address"], session.get("dashboard_port")
+    check(bool(dash_port) and len(session["pids"]) == 3,
+          f"rt start --head started no dashboard: {started} {session}")
+    dash = f"http://127.0.0.1:{dash_port}"
+    dash_pid = session["pids"][-1]
+    os.environ["TMPDIR"] = tmp  # the driver's own node logs there too
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import loadgen, serve
+    from ray_tpu_torch.dashboard.grafana import generate_dashboard
+    from ray_tpu_torch.serve.observatory import percentile
+    from ray_tpu_torch.util.lifecycle import SERVE_PHASE_ORDER
+
+    rt.init(address=addr, num_gpus=0)
+    try:
+        # -- deploy ----------------------------------------------------------
+        t0 = time.perf_counter()
+        dep = serve.deployment(_loadgen_deployment_cls(), name="TraceLLM",
+                               max_ongoing_requests=64,
+                               ray_actor_options={"num_gpus": 1})
+        h = serve.run(dep.bind(_llama_loader("bfloat16", 0, SEED),
+                               **LOADGEN_ENGINE), name=LOADGEN_APP)
+        warm = list(h.options(stream=True).remote(
+            {"i": 10**6, "prompt_tokens": 8, "max_tokens": 4}))
+        deploy_s = time.perf_counter() - t0
+        check(len(warm) == 4, f"the warm-up request streamed {warm}")
+        h.options(method_name="reset_counts").remote().result(timeout=300)
+
+        # -- the trace, twice ------------------------------------------------
+        paths = [os.path.join(tmp, f"trace{k}.jsonl") for k in (1, 2)]
+        for k, path in enumerate(paths):
+            _, walls[f"gen{k + 1}"] = _cli(env, "loadgen", "gen", path,
+                                           *LOADGEN_TRACE)
+        blobs = [pathlib.Path(p).read_bytes() for p in paths]
+        trace = [json.loads(ln) for ln in blobs[0].decode().splitlines()]
+        records = trace[1:]
+        by_idx = {r["i"]: r for r in records}
+
+        # -- replay ----------------------------------------------------------
+        cards_path = os.path.join(tmp, "cards.json")
+        report_path = os.path.join(tmp, "report.json")
+        run_env = dict(env, RT_LOADGEN_CARDS=cards_path)
+        run_log = os.path.join(tmp, "loadgen_run.log")
+        t0 = time.perf_counter()
+        with open(run_log, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", LOADGEN_RUN, "loadgen", "run",
+                 paths[0], "--app", LOADGEN_APP, "--address", addr,
+                 "--out", report_path],
+                env=run_env, stdout=log, stderr=subprocess.STDOUT)
+        run_mapped_torch, reads = False, 0
+        while proc.poll() is None:
+            maps = _mapped(proc.pid)
+            if maps["readable"]:
+                run_mapped_torch |= maps["torch"]
+                reads += 1
+            check(time.perf_counter() - t0 < 600, "rt loadgen run hung")
+            time.sleep(0.2)
+        walls["run"] = time.perf_counter() - t0
+        run_out = pathlib.Path(run_log).read_text()
+        with open(report_path) as f:
+            report = json.load(f)
+        with open(cards_path) as f:
+            cards = json.load(f)
+        summary, recon = report["run"], report["reconciliation"]
+        counts = h.options(method_name="counts").remote().result(timeout=300)
+        server = loadgen.collect_server_records(LOADGEN_APP)
+        matched = {r["rid"] for r in recon["requests"]}
+        phases = {p: sorted(r["phases"].get(p, 0.0) for r in server
+                            if r["rid"] in matched)
+                  for p in SERVE_PHASE_ORDER}
+        held = h.options(method_name="sample").remote().result(timeout=300)
+        replica_board = h.options(method_name="board").remote().result(
+            timeout=300)
+
+        # -- the dashboard ---------------------------------------------------
+        health = _http(dash + "/healthz")
+        nodes = json.loads(_http(dash + "/api/nodes")[2])
+        apps = json.loads(_http(dash + "/api/serve")[2])
+        entry = held["sample"][0] if held["sample"] else {}
+        deadline = time.monotonic() + 30
+        while True:
+            scrape = _http(dash + "/metrics")
+            text = scrape[2]
+            issued = _prom_samples(text, "loadgen_requests_total")
+            live = {k: v for k, v in
+                    _prom_samples(text, "device_hbm_live_bytes").items()
+                    if f'device="{entry.get("device")}"' in k}
+            if (sum(issued.values()) == len(records)
+                    and held["allocated"] in live.values()) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        scrape_s = sorted(_http(dash + "/metrics")[3] for _ in range(5))
+        exported = dict(re.findall(r"^# TYPE ((?:loadgen|serve)_\w+) (\w+)$",
+                                   text, re.M))
+        # The board an operator gets: the curated panels, and a panel for
+        # each metric in the registry of the process that builds it (the
+        # replica, which exports the serve_ metrics no curated panel shows).
+        curated = generate_dashboard(user_metrics=[])
+        curated_exprs = [t["expr"] for p in curated["panels"]
+                         for t in p["targets"]]
+
+        def in_exprs(name, pool):
+            pat = re.compile(rf"\b{re.escape(name)}(_bucket|_sum|_count)?\b")
+            return any(pat.search(e) for e in pool)
+
+        uncurated = sorted(n for n in exported
+                           if not in_exprs(n, curated_exprs))
+        unboarded = [n for n in uncurated
+                     if not in_exprs(n, replica_board["exprs"])]
+        mistyped = {n: (t, replica_board["types"][n])
+                    for n, t in exported.items()
+                    if replica_board["types"].get(n, t) != t}
+        dash_maps = _mapped(dash_pid)
+
+        # -- a job through the REST API, once the replica gives the card back
+        serve.shutdown()
+        _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after serve")
+        wd = os.path.join(tmp, "job")
+        os.makedirs(wd)
+        with open(os.path.join(wd, "job_main.py"), "w") as f:
+            f.write(JOB_MAIN)
+        token = f"rest-{SEED}-{os.getpid()}"
+        with open(os.path.join(wd, "job_data.json"), "w") as f:
+            json.dump({"seed": SEED + 7, "shape": [8, 4096], "eps": EPS,
+                       "token": token}, f)
+        t0 = time.perf_counter()
+        posted = _http(dash + "/api/jobs", json.dumps({
+            "entrypoint": f"{sys.executable} {wd}/job_main.py",
+            "runtime_env": {"env_vars": {
+                "RT_JOB_MARKER": "rt-rest-job",
+                "RT_JOB_DATA": os.path.join(wd, "job_data.json")}},
+        }).encode())
+        check(posted[0] == 200, f"POST /api/jobs: {posted[:3]}")
+        sid = json.loads(posted[2])["submission_id"]
+        job = {}
+        while job.get("state") not in ("SUCCEEDED", "FAILED", "STOPPED"):
+            check(time.perf_counter() - t0 < 600, f"the job hung: {job}")
+            time.sleep(0.1)
+            job = json.loads(_http(dash + f"/api/jobs/{sid}")[2])
+        job_s = time.perf_counter() - t0
+        job_logs = _http(dash + f"/api/jobs/{sid}/logs")[2]
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+            os.environ.pop("TMPDIR", None)
+    _, walls["stop"] = _cli(env, "stop")
+    deadline = time.monotonic() + 30
+    while (_runtime_procs() or any(_pid_alive(p) for p in session["pids"])) \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _runtime_procs() + [p for p in session["pids"] if _pid_alive(p)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+
+    # -- what the run measured -----------------------------------------------
+    ok = [c for c in cards if c["error"] is None]
+    tenants = sorted({c["tenant"] for c in cards})
+
+    def q(xs, p):
+        return percentile(sorted(xs), p)
+
+    by_tenant = {t: {k: {"p50": q([c[k] for c in ok if c["tenant"] == t],
+                                  0.5),
+                         "p99": q([c[k] for c in ok if c["tenant"] == t],
+                                  0.99)}
+                     for k in ("ttfb_s", "client_e2e_s")}
+                 for t in tenants}
+    out_tokens = sum(c["chunks"] for c in ok)
+    bad_chunks = [(c["idx"], c["chunks"], by_idx[c["idx"]]["max_tokens"])
+                  for c in cards
+                  if c["chunks"] != by_idx[c["idx"]]["max_tokens"]]
+    lines = [ln for ln in job_logs.splitlines() if ln.startswith("JOB_TASK ")]
+    task = json.loads(lines[-1][len("JOB_TASK "):]) if lines else {}
+    rec = {"phase": "loadgen", "card": device_name,
+           "requests": len(records),
+           "offered_qps": len(records) / LOADGEN_DURATION_S,
+           "achieved_qps": summary["achieved_qps"],
+           "run_duration_s": summary["duration_s"],
+           "output_tokens": out_tokens,
+           "output_tokens_per_s": out_tokens / summary["duration_s"],
+           "client_by_tenant": by_tenant,
+           "client_e2e_s": summary["client_e2e_s"],
+           "client_ttfb_s": summary["client_ttfb_s"],
+           "gap_fraction": recon["summary"]["gap_fraction"],
+           "gap_s": recon["summary"]["gap_s"],
+           "gate_pass": recon["summary"]["gate_pass"],
+           "cli_rc": proc.returncode,
+           "matched": recon["summary"]["matched"],
+           "unmatched": recon["summary"]["unmatched"],
+           "errors": recon["summary"]["errors"],
+           "server_phase_p50_s": {p: q(v, 0.5) for p, v in phases.items()},
+           "server_phase_p99_s": {p: q(v, 0.99) for p, v in phases.items()},
+           "rmsnorm": counts,
+           "metrics_scrape_s": {"p50": scrape_s[2], "min": scrape_s[0],
+                                "max": scrape_s[-1],
+                                "bytes": len(text.encode())},
+           "card_bytes": {"sampled": entry.get("live_bytes"),
+                          "replica_own": held["allocated"],
+                          "dashboard": sorted(live.values())},
+           "exported_metrics": len(exported),
+           "curated_on_board": len(exported) - len(uncurated),
+           "uncurated": uncurated,
+           "job": {"state": job.get("state"), "submit_to_end_s": job_s,
+                   "task": task},
+           "deploy_s": deploy_s, "walls_s": walls, "phase_s": phase_s,
+           "procs_left": left}
+    emit(rec)
+    print(json.dumps({"loadgen_numbers": {
+        k: rec[k] for k in ("offered_qps", "achieved_qps",
+                            "output_tokens_per_s", "client_by_tenant",
+                            "gap_fraction", "gate_pass",
+                            "server_phase_p50_s", "metrics_scrape_s",
+                            "phase_s")}}), flush=True)
+    check(blobs[0] == blobs[1], "rt loadgen gen wrote two different traces")
+    check(summary["issued"] == len(records) and len(cards) == len(records),
+          f"{summary['issued']} issued, {len(cards)} cards, "
+          f"{len(records)} in the trace")
+    check(not [c for c in cards if c["error"]],
+          f"failed cards: {[c for c in cards if c['error']][:3]}")
+    check(recon["summary"]["unmatched"] == 0 and
+          recon["summary"]["matched"] == len(records),
+          f"reconciliation: {recon['summary']}")
+    check(not bad_chunks, f"chunks != max_tokens (idx, got, want): "
+          f"{bad_chunks[:5]}")
+    check((proc.returncode == 0) == bool(recon["summary"]["gate_pass"])
+          and proc.returncode in (0, 1),
+          f"rt loadgen run exited {proc.returncode} with gate_pass "
+          f"{recon['summary']['gate_pass']}: {run_out[-2000:]}")
+    per_pass = 2 * counts["n_layers"] + 1
+    check(counts["forward_passes"] > 0 and counts["rmsnorm_launches"]
+          == per_pass * counts["forward_passes"],
+          f"rmsnorm launches in the replica: {counts}")
+    check(reads > 0 and not run_mapped_torch,
+          f"the loadgen run process mapped libtorch ({reads} reads)")
+    check(dash_maps["readable"] and not dash_maps["torch"],
+          f"the dashboard process's maps: {dash_maps}")
+    check(health[0] == 200 and health[2] == "ok", f"/healthz: {health[:3]}")
+    check([(n["is_head"], n["resources_total"].get("GPU", 0.0))
+           for n in nodes if n["state"] == "ALIVE"]
+          == [(True, 1.0), (False, 0.0)],
+          f"/api/nodes (the head's and the driver's node): {nodes}")
+    check([(a["app"], a["running_replicas"]) for a in apps]
+          == [(LOADGEN_APP, 1)], f"/api/serve: {apps}")
+    check(sum(issued.values()) == len(records),
+          f"loadgen_requests_total {issued} against {len(records)}")
+    check("serve_llm_ttft_seconds_bucket" in text,
+          "/metrics lacks serve_llm_ttft_seconds_bucket")
+    check(entry.get("live_bytes") == held["allocated"]
+          and list(live.values()) == [held["allocated"]],
+          f"device_hbm_live_bytes {live} against the replica's "
+          f"{held['allocated']}")
+    check(not unboarded, f"exported metrics on no Grafana panel: {unboarded}")
+    check(not mistyped, "metrics whose exposition type is not their "
+          f"registry's (exposition, registry): {mistyped}")
+    check(job.get("state") == "SUCCEEDED", f"the REST job: {job} "
+          f"{job_logs[-2000:]}")
+    check(task.get("launches") == 1 and task.get("ulp", 99) <= 1
+          and task.get("token") == token
+          and task.get("marker") == "rt-rest-job"
+          and task.get("device") == device_name, f"the REST job's task: {task}")
+    check(not left, f"processes after rt stop: {left}")
+    return counts["rmsnorm_launches"], task["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -4215,6 +4670,7 @@ def main() -> int:
     cluster_launches = run(phase_cluster, name)
     cli_launches = run(phase_cli, train, name)
     data_train_launches, data_infer_launches = run(phase_data, train, name)
+    loadgen_launches, rest_job_launches = run(phase_loadgen, name)
     emit({"phase": "timing", "seconds": seconds})
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "ray_tpu") or m.startswith(("jax.",
@@ -4238,7 +4694,9 @@ def main() -> int:
                              "cluster": cluster_launches,
                              "cli": cli_launches["rmsnorm_fwd"],
                              "data_train": data_train_launches["rmsnorm_fwd"],
-                             "data_infer": data_infer_launches["rmsnorm_fwd"]},
+                             "data_infer": data_infer_launches["rmsnorm_fwd"],
+                             "loadgen": loadgen_launches,
+                             "dashboard_job": rest_job_launches},
         "max_abs_err": max_abs,
         "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],

@@ -2613,6 +2613,28 @@ class Raylet:
                         and st["heap_size"] - st["used_bytes"] >= room_for):
                     break
                 obj = ObjectID(oid)
+                kept = self._spilled.get(oid)
+                if kept is not None:
+                    # A restored copy whose spill file is still there:
+                    # drop it from memory without writing it again.
+                    self.store.release(obj)
+                    self._primary_pins.pop(oid, None)
+                    if not self.store.delete(obj):
+                        # A local client holds a live view: take the
+                        # primary pin back, or the next pass releases
+                        # the reader's reference and frees its block.
+                        v = self.store.get(obj)
+                        if v is not None:
+                            del v
+                            self._primary_pins[oid] = 0
+                        continue
+                    spilled += 1
+                    await self.gcs.call(
+                        "object_spilled",
+                        {"object_id": oid, "node_id": self.node_id.binary(),
+                         "uri": kept},
+                    )
+                    continue
                 view = self.store.get(obj)
                 if view is None:
                     self._primary_pins.pop(oid, None)
@@ -2681,9 +2703,10 @@ class Raylet:
         buf[: len(data)] = data
         del buf
         self.store.seal(obj)
-        # Keep the get-pin as the primary pin.
+        # Keep the get-pin as the primary pin, and the spill file: the
+        # next spill pass drops this copy without writing it again, and
+        # the free deletes the file.
         self._primary_pins[oid] = len(data)
-        self._spilled.pop(oid, None)
         await self.gcs.call(
             "object_location_add",
             {"object_id": oid, "node_id": self.node_id.binary(),

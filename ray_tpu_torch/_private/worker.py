@@ -85,6 +85,7 @@ class _InStoreSentinel:
 
 
 _IN_STORE = _InStoreSentinel()
+_MISSING = object()  # _read_store: the local store no longer holds it
 
 
 class ObjectRef:
@@ -1036,7 +1037,7 @@ class CoreClient:
             for (i, ref), res in zip(remote, results):
                 if isinstance(res, BaseException):
                     raise res  # first failing ref in list order
-                out[i] = self._read_store(ObjectID(ref.id.binary()))
+                out[i] = self._read_pulled(ref.id.binary(), deadline)
         if lc_t0 is not None:
             self._lc_note_get_wait(refs, time.monotonic() - lc_t0)
         return out
@@ -1118,7 +1119,9 @@ class CoreClient:
         if oid in self.memory_store:
             return True, self.memory_store[oid]
         if self.store is not None and self.store.contains_raw(oid):
-            return True, self._read_store(ObjectID(oid))
+            value = self._read_store(ObjectID(oid))
+            if value is not _MISSING:  # else spilled since: pull it back
+                return True, value
         return False, None
 
     async def _pull_many(self, oids: List[bytes], deadline):
@@ -1308,12 +1311,27 @@ class CoreClient:
             f"remote fetch of {oid.hex()} failed: {last_err}"
         ) from None
 
+    def _read_pulled(self, oid: bytes, deadline):
+        """Read an object just pulled into the local store. A spill pass
+        may drop it before this reader pins it (a restored copy keeps its
+        spill file, so the pass frees it without writing): pull again."""
+        for _attempt in range(3):
+            value = self._read_store(ObjectID(oid))
+            if value is not _MISSING:
+                return value
+            self._run(self._pull_or_join(oid, deadline))
+        raise ObjectLostError(
+            f"object {ObjectID(oid).hex()} missing from local store"
+        )
+
     def _read_store(self, oid: ObjectID):
+        """The object's value, read zero-copy from the local store, or
+        _MISSING when the store no longer holds it."""
         if self.store is None:
             return self._read_remote(oid)
         view = self.store.get(oid)
         if view is None:
-            raise ObjectLostError(f"object {oid.hex()} missing from local store")
+            return _MISSING
         value = ser.deserialize(view)
         # The store-side refcount from get() is the pin protecting the
         # zero-copy buffers under `value`. Tie its release to the value's

@@ -20,9 +20,13 @@ Usage:
     rt memory [--devices]
     rt top
     rt job submit|status|logs|list|stop ...
+    rt loadgen gen TRACE [--seed N --duration S --qps Q --flash A:B:M ...]
+    rt loadgen run TRACE --app APP [--address HOST:PORT] [--out REPORT]
 
-Not in the port yet: the dashboard (ROADMAP A2b.8); `rt up`, `down`,
-`exec` and `attach` (the autoscaler's launcher, A2b.7); `rt loadgen` (A8).
+`rt start --head` also starts the dashboard (`ray_tpu_torch.dashboard`,
+port 8265 unless `--dashboard-port`; `--no-dashboard` to skip it).
+Not in the port yet: `rt up`, `down`, `exec` and `attach` (the
+autoscaler's launcher, ROADMAP A2b.7).
 """
 
 from __future__ import annotations
@@ -155,14 +159,35 @@ def cmd_start(args):
     if gcs is not None:
         pids.append(gcs.pid)
     pids.append(raylet.pid)
+    dashboard_port = None
+    if args.head and not args.no_dashboard:
+        dash = _spawn_service(
+            "dashboard",
+            [sys.executable, "-m", "ray_tpu_torch.dashboard",
+             "--address", gcs_address, "--port", str(args.dashboard_port)],
+        )
+        dash_log = os.path.join(_log_dir(), f"dashboard-{os.getpid()}.log")
+        try:
+            dashboard_port = int(
+                _wait_for_key(dash, dash_log, "DASHBOARD_PORT=", timeout=60)
+            )
+            pids.append(dash.pid)
+        except (RuntimeError, TimeoutError) as e:
+            print(f"warning: dashboard failed to start: {e}")
+            try:
+                dash.kill()
+            except OSError:
+                pass
+    if sess and dashboard_port is None:
+        dashboard_port = sess.get("dashboard_port")
     _write_session(
-        {"gcs_address": gcs_address, "pids": pids, "raylet_port": raylet_port}
+        {"gcs_address": gcs_address, "pids": pids, "raylet_port": raylet_port,
+         "dashboard_port": dashboard_port}
     )
     print(f"started node {node_id[:12]} (raylet port {raylet_port})")
     print(f"GCS address: {gcs_address}")
-    if args.head:
-        print("dashboard: none started (not in the PyTorch port yet, "
-              "ROADMAP A2b.8)")
+    if dashboard_port:
+        print(f"dashboard: http://127.0.0.1:{dashboard_port}")
     print(f'connect with:  ray_tpu_torch.init(address="{gcs_address}")')
     if args.block:
         try:
@@ -922,8 +947,63 @@ def cmd_serve(args):
 
 
 def cmd_loadgen(args):
-    """`rt loadgen` (the macro traffic harness) is not ported yet."""
-    raise not_ported("rt loadgen (the macro traffic harness)", "A8")
+    """`rt loadgen gen <trace>`: write a seeded-deterministic traffic
+    trace (offline — no cluster). `rt loadgen run <trace> --app X`:
+    replay it against a deployed serve app and print the
+    client<->server latency reconciliation report."""
+    from ray_tpu_torch.loadgen import trace as trace_mod
+    from ray_tpu_torch.loadgen import workload
+
+    if args.loadgen_command == "gen":
+        flash = []
+        for f in args.flash:
+            parts = f.split(":")
+            if len(parts) != 3:
+                raise SystemExit(
+                    f"--flash wants START:DUR:MULT, got {f!r}")
+            flash.append(tuple(float(x) for x in parts))
+        curve = workload.RateCurve(
+            base_qps=args.qps, ramp_to_qps=args.ramp_to,
+            ramp_s=args.ramp_s,
+            diurnal_amplitude=args.diurnal_amplitude,
+            diurnal_period_s=args.diurnal_period, flash=flash,
+        )
+        spec = trace_mod.TraceSpec(
+            seed=args.seed, duration_s=args.duration, curve=curve,
+            kind="closed" if args.closed else "open",
+            process=args.process, pareto_alpha=args.pareto_alpha,
+            concurrency=args.concurrency, num_requests=args.requests,
+            mean_think_s=args.think,
+        )
+        header, records = trace_mod.generate(spec)
+        trace_mod.write(args.trace, header, records)
+        print(f"wrote {len(records)} requests to {args.trace} "
+              f"({header['kind']} loop, seed {header['seed']})")
+        return
+    # run
+    if not args.app:
+        raise SystemExit("rt loadgen run requires --app")
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import loadgen
+
+    header, records = trace_mod.read(args.trace)
+    rt.init(address=_resolve_address(args), num_cpus=0,
+            ignore_reinit_error=True)
+    call = loadgen.serve_call_fn(args.app, stream=not args.unary)
+    result = loadgen.run_trace(header, records, call,
+                               workers=args.workers)
+    server = loadgen.collect_server_records(args.app)
+    report = loadgen.reconcile(result.cards, server)
+    summary = result.summary()
+    print(json.dumps(summary, indent=2))
+    print(loadgen.render_report(report))
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            json.dump({"run": summary, "reconciliation": report}, f,
+                      indent=2)
+        print(f"report written to {args.out}")
+    if not report["summary"]["gate_pass"]:
+        raise SystemExit(1)
 
 
 def cmd_config(args):
@@ -966,6 +1046,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--resources", help="JSON resource map")
     sp.add_argument("--object-store-memory", type=int)
     sp.add_argument("--block", action="store_true")
+    sp.add_argument("--no-dashboard", action="store_true")
+    sp.add_argument("--dashboard-port", type=int, default=8265)
     sp.set_defaults(fn=cmd_start)
 
     sp = sub.add_parser("stop", help="stop services started by `rt start`")
@@ -1120,9 +1202,45 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser(
         "loadgen",
-        help="macro traffic harness (not in the PyTorch port yet)",
+        help="macro traffic harness: generate/replay traces, reconcile "
+             "client vs server latency",
     )
-    sp.add_argument("args", nargs=argparse.REMAINDER)
+    sp.add_argument("loadgen_command", choices=["gen", "run"])
+    sp.add_argument("trace", help="trace file (JSONL) to write or replay")
+    # gen knobs (offline; no cluster needed)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--duration", type=float, default=30.0,
+                    help="open-loop trace length in seconds")
+    sp.add_argument("--qps", type=float, default=20.0,
+                    help="base offered rate")
+    sp.add_argument("--ramp-to", type=float, default=None,
+                    help="ramp linearly from --qps to this rate")
+    sp.add_argument("--ramp-s", type=float, default=0.0,
+                    help="ramp duration (seconds)")
+    sp.add_argument("--diurnal-amplitude", type=float, default=0.0)
+    sp.add_argument("--diurnal-period", type=float, default=86400.0)
+    sp.add_argument("--flash", action="append", default=[],
+                    metavar="START:DUR:MULT",
+                    help="flash-crowd window (repeatable)")
+    sp.add_argument("--process", choices=["poisson", "pareto"],
+                    default="poisson")
+    sp.add_argument("--pareto-alpha", type=float, default=1.5)
+    sp.add_argument("--closed", action="store_true",
+                    help="closed-loop trace (bounded concurrency)")
+    sp.add_argument("--concurrency", type=int, default=8)
+    sp.add_argument("--requests", type=int, default=0,
+                    help="closed-loop request count")
+    sp.add_argument("--think", type=float, default=0.0,
+                    help="closed-loop mean think time (seconds)")
+    # run knobs
+    sp.add_argument("--app", help="deployed serve app to drive")
+    sp.add_argument("--workers", type=int, default=64,
+                    help="open-loop dispatch pool size")
+    sp.add_argument("--unary", action="store_true",
+                    help="unary calls instead of streaming")
+    sp.add_argument("--out", help="write the reconciliation report "
+                                  "(JSON) here")
+    sp.add_argument("--address")
     sp.set_defaults(fn=cmd_loadgen)
 
     return p

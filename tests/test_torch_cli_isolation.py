@@ -3,8 +3,9 @@
 - the CLI process (`python -m ray_tpu_torch ...`) loads neither torch nor
   JAX nor any module of ray_tpu, for every read-only command, so no
   `rt status` pays torch's import;
-- the GCS and raylet that `rt start` spawns map no torch or JAX library,
-  and their modules import none of torch, JAX or ray_tpu;
+- the GCS, raylet and dashboard that `rt start --head` spawns map no
+  torch or JAX library, and their modules import none of torch, JAX or
+  ray_tpu;
 - `rt stop` leaves no process of the session behind;
 - `util.memory.sample_once()` never creates a CUDA context, and in a
   process without torch it does not import it.
@@ -84,23 +85,30 @@ def _session_pids(tmp):
 def session(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("rt_session")
     env = _env(tmp)
-    out = _cli(env, "start", "--head", "--num-cpus", "2")
+    out = _cli(env, "start", "--head", "--num-cpus", "2",
+               "--dashboard-port", "0")
     sess = json.loads((tmp / "ray_tpu_torch" / "session.json").read_text())
     yield env, tmp, sess, out
     _cli(env, "stop")
 
 
 def test_rt_start_detects_the_gpu_and_names_no_dashboard(session):
+    """`rt start --head` names the dashboard it started, which answers."""
+    import urllib.request
+
     env, _, sess, out = session
-    assert "dashboard: none started (not in the PyTorch port yet, " \
-        "ROADMAP A2b.8)" in out
+    url = f"http://127.0.0.1:{sess['dashboard_port']}"
+    assert f"dashboard: {url}" in out
+    with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+        assert r.read() == b"ok"
     status = _cli(env, "status")
     assert "  1/1 GPU" in status and "  2/2 CPU" in status
 
 
 @pytest.mark.parametrize("args", [
     ["status"], ["list", "nodes"], ["list", "workers"], ["summary", "tasks"],
-    ["memory", "--devices"], ["top"], ["stack"], ["logs"], ["config"]],
+    ["memory", "--devices"], ["top"], ["stack"], ["logs"], ["config"],
+    ["loadgen", "gen", os.devnull, "--duration", "2"]],
     ids=lambda a: "-".join(a))
 def test_the_cli_process_loads_no_torch_jax_or_ray_tpu(session, args):
     env = session[0]
@@ -113,13 +121,14 @@ def test_the_cli_process_loads_no_torch_jax_or_ray_tpu(session, args):
 
 def test_rt_start_services_map_no_torch_or_jax(session):
     _, _, sess, _ = session
-    assert len(sess["pids"]) == 2  # the GCS and the raylet
+    assert len(sess["pids"]) == 3  # the GCS, the raylet, the dashboard
     for pid in sess["pids"]:
         maps = _maps(pid)
         assert "libtorch" not in maps and "/torch/" not in maps, pid
         assert "jaxlib" not in maps and "/jax/" not in maps, pid
     probe = ("import sys\n"
              "import ray_tpu_torch._private.gcs, ray_tpu_torch._private.raylet\n"
+             "import ray_tpu_torch.dashboard.dashboard\n"
              "from ray_tpu_torch._private.node import resolve_resources\n"
              "resolve_resources()\n"
              f"print(sorted(m for m in sys.modules if m.split('.')[0] in {_BAD!r}))")
@@ -131,7 +140,7 @@ def test_rt_start_services_map_no_torch_or_jax(session):
 
 def test_rt_stop_leaves_no_process(tmp_path):
     env = _env(tmp_path)
-    _cli(env, "start", "--head", "--num-cpus", "2")
+    _cli(env, "start", "--head", "--num-cpus", "2", "--dashboard-port", "0")
     sess = json.loads((tmp_path / "ray_tpu_torch" / "session.json")
                       .read_text())
     driver = ("import os, sys, ray_tpu_torch as rt\n"

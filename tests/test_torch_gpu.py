@@ -7,8 +7,9 @@ from a num_gpus=1 replica, a one-worker TorchTrainer on an NCCL group of
 one, a checkpoint of CUDA bf16 tensors, Tune trials that hold the card
 (and one that finds none and raises), a compiled DAG with a GPU
 stage, and the data library's feed to the card (iter_torch_batches with
-prefetch 0 and 2, bit-equal to the CPU's) and a GPU actor pool's
-map_batches. Each test skips without a
+prefetch 0 and 2, bit-equal to the CPU's), a GPU actor pool's
+map_batches, and a closed-loop loadgen trace through a GPU replica.
+Each test skips without a
 CUDA device. This file imports no JAX, so on a machine with a card and
 without JAX it runs on its own:
 
@@ -853,3 +854,60 @@ def test_gpu_actor_pool_map_batches_runs_on_its_card(cuda_device,
     (pair,) = {(r["visible"], r["granted"]) for r in out}
     assert pair[0] == pair[1] and pair[0] != ""
     assert free == total
+
+
+def test_loadgen_closed_loop_trace_through_a_gpu_replica(cuda_device,
+                                                         monkeypatch):
+    """A closed-loop trace of 8 requests (2 virtual users) streamed
+    through a num_gpus=1 replica whose engine holds the tiny model on the
+    card: every card ok, matched by rid to the replica's phase record,
+    with as many chunks as its max_tokens."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import loadgen, serve
+    from ray_tpu_torch.loadgen import trace as trace_mod
+
+    class TraceTiny:
+        def __init__(self):
+            from ray_tpu_torch.models import configs, init_params
+
+            cfg = configs.tiny
+            self.engine = ContinuousBatchingEngine(
+                init_params(cfg, seed=0, device="cuda"), cfg, num_slots=4,
+                max_len=128)
+            self.vocab = cfg.vocab_size
+
+        def __call__(self, request):
+            import numpy as np
+
+            rng = np.random.default_rng(request["i"])
+            yield from self.engine.submit(
+                rng.integers(0, self.vocab, request["prompt_tokens"]),
+                request["max_tokens"])
+
+    blend = loadgen.TenantBlend([
+        {"name": "a", "prompt": {"median": 16, "hi": 64, "tail_p": 0.0},
+         "output": {"median": 8, "hi": 16, "tail_p": 0.0}},
+        {"name": "b", "prompt": {"median": 32, "hi": 64, "tail_p": 0.0},
+         "output": {"median": 4, "hi": 16, "tail_p": 0.0}}])
+    header, records = trace_mod.generate(loadgen.TraceSpec(
+        seed=0, duration_s=0.0, curve=loadgen.RateCurve(0.0), blend=blend,
+        kind="closed", num_requests=8, concurrency=2))
+    monkeypatch.delenv("RT_NUM_GPUS", raising=False)
+    rt.init(num_cpus=2)
+    try:
+        serve.run(serve.deployment(TraceTiny, name="TraceTiny",
+                                   ray_actor_options={"num_gpus": 1}).bind(),
+                  name="tiny")
+        result = loadgen.run_trace(header, records,
+                                   loadgen.serve_call_fn("tiny"),
+                                   emit_metrics=False)
+        report = loadgen.reconcile(result.cards,
+                                   loadgen.collect_server_records("tiny"))
+        serve.shutdown()
+    finally:
+        rt.shutdown()
+    assert [c.ok for c in result.cards] == [True] * 8
+    assert [c.chunks for c in result.cards] == \
+        [r["max_tokens"] for r in records]
+    s = report["summary"]
+    assert (s["matched"], s["unmatched"], s["errors"]) == (8, 0, 0)

@@ -48,7 +48,7 @@ def _cli(env, *args):
 
 def test_rt_start_detects_the_card(cuda_device, tmp_path):
     env = _env(tmp_path)
-    _cli(env, "start", "--head", "--num-cpus", "2")
+    _cli(env, "start", "--head", "--num-cpus", "2", "--no-dashboard")
     try:
         status = _cli(env, "status")
         n = torch.cuda.device_count()
@@ -93,7 +93,7 @@ rt.kill(h)
 def test_sample_once_in_a_gpu_actor_reports_its_own_bytes(cuda_device,
                                                           tmp_path):
     env = _env(tmp_path)
-    _cli(env, "start", "--head", "--num-cpus", "2")
+    _cli(env, "start", "--head", "--num-cpus", "2", "--no-dashboard")
     try:
         addr = json.loads((tmp_path / "ray_tpu_torch" / "session.json")
                           .read_text())["gcs_address"]

@@ -3,7 +3,9 @@ ray_tpu (serving, one training step and the runtime's worker processes
 included), its serialization runs the vendored cloudpickle and msgpack,
 and it never falls back to the CPU on its own. The Serve control plane
 (controller, proxy, handle) loads no torch, and the zygote never makes a
-CUDA context."""
+CUDA context. The load generator and the dashboard only route and read:
+their modules load no torch, and neither the dashboard process that `rt
+start --head` spawns nor an `rt loadgen run` process maps libtorch."""
 
 import pathlib
 import re
@@ -361,6 +363,19 @@ def mapped(pid):
     return {"torch": "libtorch" in maps, "cuda_driver": "libcuda.so" in maps}
 
 
+def proc_info(pid):
+    # (the two arguments after the interpreter, the parent pid), or None
+    # for a pid that exited since /proc was listed.
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            argv = f.read().split(b"\0")[1:3]
+        with open(f"/proc/{pid}/stat") as f:
+            ppid = int(f.read().rsplit(") ", 1)[1].split()[1])
+    except (FileNotFoundError, ProcessLookupError):
+        return None
+    return argv, ppid
+
+
 rt.init(num_cpus=4)
 try:
     http = serve.start(port=0)["head"]["http"]
@@ -376,10 +391,8 @@ try:
     replica = rt.get(serve.get_or_create_controller().get_replicas.remote(
         "llm"), timeout=30)["replicas"][0]
     zygote = [p for p in os.listdir("/proc") if p.isdigit()
-              and open(f"/proc/{p}/cmdline", "rb").read().split(b"\0")[1:3]
-              == [b"-m", b"ray_tpu_torch._private.zygote"]
-              and int(open(f"/proc/{p}/stat").read().rsplit(") ", 1)[1]
-                      .split()[1]) == os.getpid()]
+              and proc_info(p) == ([b"-m", b"ray_tpu_torch._private.zygote"],
+                                   os.getpid())]
     report = {
         "tokens": tokens,
         "controller": mapped(pids[rt.get_actor(CONTROLLER_NAME)
@@ -530,3 +543,125 @@ def test_build_report_names_the_tensor_core_dq_kernel(monkeypatch, tmp_path):
             dq["registers"], dq["spill_stores"], dq["dynamic_smem"]) == (
         "flash_bwd_dq_mma_kernel<128, 64, 1>", "flash_bwd_dq", "tensor cores",
         "bfloat16", 128, 248, 0, 1228)
+
+
+_LOADGEN_DASHBOARD_MODULES = [
+    "ray_tpu_torch.loadgen", "ray_tpu_torch.loadgen.workload",
+    "ray_tpu_torch.loadgen.arrival", "ray_tpu_torch.loadgen.trace",
+    "ray_tpu_torch.loadgen.client", "ray_tpu_torch.loadgen.reconcile",
+    "ray_tpu_torch.loadgen.runner", "ray_tpu_torch.dashboard",
+    "ray_tpu_torch.dashboard.dashboard", "ray_tpu_torch.dashboard.grafana",
+    "ray_tpu_torch._private.http11"]
+
+
+@pytest.mark.parametrize("module", _LOADGEN_DASHBOARD_MODULES)
+def test_loadgen_and_dashboard_modules_import_no_torch_jax_or_ray_tpu(module):
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'ray_tpu')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def _maps_libtorch(pid):
+    with open(f"/proc/{pid}/maps") as f:
+        return "libtorch" in f.read()
+
+
+@pytest.fixture(scope="module")
+def head(tmp_path_factory):
+    """A node from `rt start --head` with its dashboard on a free port."""
+    import json
+    import os
+
+    tmp = tmp_path_factory.mktemp("rt_head")
+    env = dict(os.environ, TMPDIR=str(tmp), RT_NUM_GPUS="0",
+               PYTHONPATH=str(ROOT))
+
+    def cli(*args):
+        proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode == 0, (args, proc.stderr[-3000:])
+        return proc.stdout
+
+    cli("start", "--head", "--num-cpus", "4", "--dashboard-port", "0")
+    sess = json.loads((tmp / "ray_tpu_torch" / "session.json").read_text())
+    yield env, sess
+    cli("stop")
+
+
+def test_the_dashboard_of_rt_start_maps_no_libtorch(head):
+    import json
+    import urllib.request
+
+    _, sess = head
+    url = f"http://127.0.0.1:{sess['dashboard_port']}"
+    with urllib.request.urlopen(url + "/api/nodes", timeout=30) as r:
+        assert [n["state"] for n in json.loads(r.read())] == ["ALIVE"]
+    assert len(sess["pids"]) == 3
+    assert not _maps_libtorch(sess["pids"][-1])
+
+
+_LOADGEN_RUN = r"""
+import json, os, subprocess, sys, tempfile, time
+import ray_tpu_torch as rt
+from ray_tpu_torch import serve
+
+rt.init(address=sys.argv[1], num_cpus=0)
+
+
+@serve.deployment(name="Sleeper")
+class Sleeper:
+    def __call__(self, request):
+        for i in range(int(request["max_tokens"]) % 4 + 1):
+            time.sleep(0.01)
+            yield i
+
+
+serve.run(Sleeper.bind(), name="S")
+tmp = tempfile.mkdtemp()
+trace = os.path.join(tmp, "trace.jsonl")
+cli = [sys.executable, "-m", "ray_tpu_torch", "loadgen"]
+subprocess.run(cli + ["gen", trace, "--closed", "--requests", "20",
+                      "--concurrency", "4"], check=True, timeout=120)
+proc = subprocess.Popen(cli + ["run", trace, "--app", "S", "--address",
+                               sys.argv[1]], stdout=subprocess.PIPE,
+                        stderr=subprocess.PIPE, text=True)
+reads, mapped = 0, False
+while proc.poll() is None:
+    try:
+        with open(f"/proc/{proc.pid}/maps") as f:
+            mapped |= "libtorch" in f.read()
+        reads += 1
+    except OSError:
+        pass
+    time.sleep(0.05)
+out, err = proc.communicate()
+serve.shutdown()
+print("RESULT " + json.dumps({"rc": proc.returncode, "reads": reads,
+                              "mapped": mapped, "out": out[-2000:],
+                              "err": err[-2000:]}))
+"""
+
+
+def test_a_loadgen_run_process_maps_no_libtorch(head, tmp_path):
+    import json
+
+    env, sess = head
+    script = tmp_path / "loadgen_run.py"
+    script.write_text(_LOADGEN_RUN)
+    proc = subprocess.run([sys.executable, str(script), sess["gcs_address"]],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+    res = json.loads(line[0][len("RESULT "):])
+    # The CLI exits 1 exactly when the reconciler's gap gate fails, as
+    # the JAX package's does; for 10 ms requests it may.
+    assert res["rc"] == (0 if "-> PASS" in res["out"] else 1), res
+    assert '"issued": 20' in res["out"] and '"errors": 0' in res["out"]
+    assert res["reads"] > 0 and not res["mapped"], res
+

@@ -107,3 +107,125 @@ def test_an_object_above_the_spill_margin_finds_room(tmp_path, monkeypatch):
     finally:
         rt.shutdown()
         config_mod._config = None
+
+
+
+@pytest.mark.parametrize("pkg", ["ray_tpu_torch", "ray_tpu"])
+def test_a_restored_object_is_spilled_once_and_its_file_freed(tmp_path,
+                                                              monkeypatch,
+                                                              pkg):
+    """Spill, restore, apply pressure again, then free. In the port each
+    object is written to the spill directory once (a restored copy keeps
+    its file, so the next spill pass drops it without writing), and the
+    free deletes every file. The JAX package keeps the fault (ROADMAP
+    §C, C3): it writes a restored object again and never deletes the
+    first file."""
+    import gc
+    import importlib
+    import os
+    import time
+
+    runtime = importlib.import_module(pkg)
+    config_mod = importlib.import_module(pkg + "._private.config")
+    node = importlib.import_module(pkg + "._private.worker")
+    spill_dir = tmp_path / "spill"
+    monkeypatch.setenv("RT_SPILL_DIR", str(spill_dir))
+    config_mod._config = None
+    runtime.init(num_cpus=2, object_store_memory=SMALL_STORE)
+    try:
+        raylet = node._global_node.raylet
+        storage = raylet._get_storage()
+        spills, dropped = [], set()
+        spill, delete = storage.spill, storage.delete
+
+        def counted(oid, data):
+            uri = spill(oid, data)
+            spills.append((oid, uri))
+            return uri
+
+        def counted_delete(uris):
+            dropped.update(uris)
+            return delete(uris)
+
+        storage.spill, storage.delete = counted, counted_delete
+
+        def kept():
+            # A write whose object a reader still held is deleted at once
+            # and the object stays in memory: it is not a spill.
+            return [oid for oid, uri in spills if uri not in dropped]
+
+        def files():
+            return [os.path.join(d, f) for d, _, fs in os.walk(spill_dir)
+                    for f in fs]
+
+        arrays = [np.full(2_000_000, i, dtype=np.float64) for i in range(5)]
+        refs = [runtime.put(a) for a in arrays]
+        assert kept(), "the puts spilled nothing"
+        for i, ref in enumerate(refs):  # restores every spilled object
+            out = runtime.get(ref, timeout=60)
+            assert out[0] == i and out[-1] == i
+            del out
+        more = [runtime.put(np.full(2_000_000, 10 + i, dtype=np.float64))
+                for i in range(5)]  # pressure again: restored copies go
+        for i, ref in enumerate(refs + more):
+            out = runtime.get(ref, timeout=60)
+            assert out[0] == (i if i < 5 else i + 5)
+            del out
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not (
+                raylet._metric_objects_spilled == len(kept())
+                == len(files())):
+            time.sleep(0.05)  # let a background spill pass finish
+        writes = kept()
+        assert raylet._metric_objects_spilled == len(writes)
+        assert len(files()) == len(writes)
+        if pkg == "ray_tpu":
+            assert len(writes) > len(set(writes))
+            return
+        assert len(writes) == len(set(writes)), (
+            "an object was written to the spill directory twice")
+        del refs, more, ref
+        gc.collect()
+        deadline = time.monotonic() + 30
+        while files() and time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert files() == []
+    finally:
+        runtime.shutdown()
+        config_mod._config = None
+
+
+@pytest.mark.parametrize("pkg", ["ray_tpu_torch", "ray_tpu"])
+def test_a_held_view_of_a_restored_object_survives_spill_pressure(
+        tmp_path, monkeypatch, pkg):
+    """A client keeps a zero-copy view of a restored object while later
+    puts push the store through several spill passes. Each pass finds
+    the object held and keeps it; its bytes must stay intact, as they
+    must for a data feed that reads restored blocks while more are
+    restored."""
+    import importlib
+
+    runtime = importlib.import_module(pkg)
+    config_mod = importlib.import_module(pkg + "._private.config")
+    node = importlib.import_module(pkg + "._private.worker")
+    monkeypatch.setenv("RT_SPILL_DIR", str(tmp_path / "spill"))
+    config_mod._config = None
+    runtime.init(num_cpus=2, object_store_memory=SMALL_STORE)
+    try:
+        raylet = node._global_node.raylet
+        refs = [runtime.put(np.full(2_000_000, i, dtype=np.float64))
+                for i in range(5)]
+        assert refs[0].binary() in raylet._spilled
+        held = runtime.get(refs[0], timeout=60)  # restored, then viewed
+        assert (held == 0).all()
+        more = [runtime.put(np.full(2_000_000, 10 + i, dtype=np.float64))
+                for i in range(4)]  # one spill pass for each put
+        for i, ref in enumerate(more):
+            out = runtime.get(ref, timeout=60)
+            assert out[0] == 10 + i and out[-1] == 10 + i
+            del out
+        assert (held == 0).all(), "a viewed object's block was reused"
+        del held
+    finally:
+        runtime.shutdown()
+        config_mod._config = None
