@@ -46,6 +46,29 @@ prints no result line:
            llama2-1b at full width, 2 layers, f32, batch 2 x seq 256: the
            loss and every gradient on the card against the same step on
            the CPU, and five AdamW steps on one batch lower its loss.
+  moe_train
+           the parallelism slice. First a narrow f32 MoE (mixtral's
+           layout at d 256, 4 experts, 2 layers) on the card against the
+           CPU: every routing call's dispatch mask equal, then the loss
+           and every gradient (the router's included) within the
+           train_parity tolerances. Then build_mesh(MeshConfig(), "cuda")
+           on a one-rank NCCL group (file:// rendezvous) and, through it
+           at axis size 1, ring_attention, ulysses_attention,
+           pipeline_stages and moe_layer against their references,
+           outputs and gradients. Then mixtral-8x7b at published widths
+           (d 4096, 32 heads, 8 KV heads, d_ff 14336, 8 experts, top-2,
+           vocab 32000), depth cut to 4 layers, bf16, remat full, random
+           weights from seed 0, batch 4 x seq 1024: loss_fn, backward and
+           AdamW as the train phase, 1 warm-up and 5 timed steps; step ms,
+           tokens/s, MFU by 6ND over the active parameters (all but the
+           experts, plus 2/8 of them), peak memory, one profiled step's
+           device time by kernel group and by MoE part (routing,
+           dispatch, expert products, combine: the moe.* profiler ranges
+           and the backward ops autograd links to them), launches per
+           step as predicted and a finite, falling loss. Last, all five
+           kernels at this path's shapes (RMSNorm 4096 x 4096, flash
+           [4, 1024, 32, 128]) against their plain versions, with their
+           times beside the bound, the plain version and the library.
   runtime  the runtime core: the driver frees the card, ray_tpu_torch.init()
            detects the GPU (one, with its type label); tasks, a 256 MB
            put/get (zero-copy, bit-equal), an actor and a TaskError; the
@@ -639,6 +662,165 @@ def causal_pairs(lq: int, lk: int) -> int:
     return sum(min(i + 1, lk) for i in range(lq))
 
 
+def _flash_timed(q, k, v, do) -> tuple:
+    """The three flash kernels' device times on causal bf16 [b, L, h, d]
+    inputs beside the plain version, the bound and the library call
+    (scaled_dot_product_attention; its backward as forward-and-backward
+    minus forward). Returns (records, (o, lse, delta))."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.flash_attention import (_delta,
+                                                   _flash_bwd_dkv_plain,
+                                                   _flash_bwd_dq_plain,
+                                                   _flash_fwd_plain,
+                                                   flash_bwd_dkv_cuda,
+                                                   flash_bwd_dq_cuda,
+                                                   flash_fwd_cuda)
+
+    b, L, h, hd = q.shape
+    o, lse = flash_fwd_cuda(q, k, v, True)
+    delta = _delta(o, do)
+    t_bytes = b * L * h * hd * 2  # one [b, L, h, d] bf16 tensor
+    s_bytes = b * h * L * 4  # one f32 [b, h, L] row statistic
+    pairs = causal_pairs(L, L)
+    timed = {}
+
+    def rec(name, kernel, plain, products, n_in, n_out, n_stats):
+        """products: score-sized matrix products; n_in/n_out: [b, L, h, d]
+        tensors read/written; n_stats: f32 [b, h, L] rows read or
+        written."""
+        flops = 2.0 * products * b * h * hd * pairs
+        nb = (n_in + n_out) * t_bytes + n_stats * s_bytes
+        t_ops = flops / BF16_FLOPS * 1e3
+        t_bytes_ms = nb / HBM_BYTES_PER_S * 1e3
+        timed[name] = {
+            "shape": [b, L, h, hd], "dtype": "bfloat16", "causal": True,
+            "ms": graph_ms(kernel, calls=10, reps=3),
+            "plain_ms": graph_ms(plain, calls=2, reps=3),
+            "bytes": nb, "flops": flops, "causal_pairs": pairs,
+            "bound_ms": max(t_ops, t_bytes_ms),
+            "bound_by": "operations" if t_ops > t_bytes_ms else "bytes",
+        }
+
+    rec("flash_fwd", lambda: flash_fwd_cuda(q, k, v, True),
+        lambda: _flash_fwd_plain(q, k, v, True), 2, 3, 1, 1)
+    rec("flash_bwd_dq",
+        lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, True),
+        lambda: _flash_bwd_dq_plain(q, k, v, do, lse, delta, True), 3, 4, 1,
+        2)
+    rec("flash_bwd_dkv",
+        lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True),
+        lambda: _flash_bwd_dkv_plain(q, k, v, do, lse, delta, True), 4, 4, 2,
+        2)
+    # The library yardstick: scaled_dot_product_attention on [b, h, L, d].
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    sdpa = F.scaled_dot_product_attention
+    timed["flash_fwd"]["library"] = {
+        "ms": graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True), calls=10,
+                       reps=3),
+        "method": f"F.scaled_dot_product_attention(is_causal=True), "
+                  f"{[b, h, L, hd]} bf16, CUDA graph"}
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    lib_bwd = fwd_bwd_minus_fwd_ms(
+        lambda: sdpa(qg, kg, vg, is_causal=True),
+        lambda: torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True),
+                                    (qg, kg, vg), dot), calls=10)
+    lib_bwd["covers"] = "dq, dk and dv together (K4 + K5)"
+    timed["flash_bwd_dq"]["library"] = lib_bwd
+    timed["flash_bwd_dkv"]["library"] = lib_bwd
+    return timed, (o, lse, delta)
+
+
+def _kernels_at(rows: int, d: int, attn_shape) -> dict:
+    """All five kernels at one path's shapes (bf16): each against its
+    plain version (the RMSNorm forward within 1 bf16 ulp, the others by
+    bf16_close against the plain version in f32), and its device time
+    beside the plain version, the bound and the library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.flash_attention import (_flash_bwd_dkv_plain,
+                                                   _flash_bwd_dq_plain,
+                                                   _flash_fwd_plain,
+                                                   flash_bwd_dkv_cuda,
+                                                   flash_bwd_dq_cuda)
+    from ray_tpu_torch.ops.rmsnorm import (_rmsnorm_bwd_plain,
+                                           _rmsnorm_plain, rmsnorm_bwd_cuda,
+                                           rmsnorm_cuda)
+
+    dev, bf = torch.device("cuda", 0), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = torch.randn((rows, d), generator=gen, device=dev).to(bf)
+    w = (torch.randn(d, generator=gen, device=dev) * 0.1 + 1).to(bf)
+    g = torch.randn((rows, d), generator=gen, device=dev).to(bf)
+    xr, wr = (t.detach().requires_grad_(True) for t in (x, w))
+    out = {}
+    y = rmsnorm_cuda(x, w, EPS)
+    want = _rmsnorm_plain(x, w, EPS)
+    ulp = bf16_ulp_diff(y, want)
+    fwd_bytes = 2 * rows * d * 2 + d * 2
+    out["rmsnorm_fwd"] = {
+        "shape": [rows, d], "ok": ulp <= 1, "ulp": ulp,
+        "max_abs_err": float((y.float() - want.float()).abs().max()),
+        "ms": graph_ms(lambda: rmsnorm_cuda(x, w, EPS), calls=50),
+        "plain_ms": graph_ms(lambda: _rmsnorm_plain(x, w, EPS), calls=20),
+        "library_ms": graph_ms(lambda: F.rms_norm(x, (d,), w, EPS),
+                               calls=50),
+        "bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    dx, dw = rmsnorm_bwd_cuda(x, w, g, EPS)
+    want = _rmsnorm_bwd_plain(x.float(), w.float(), g.float(), EPS)
+    oks = [bf16_close(a, b) for a, b in zip((dx, dw), want)]
+    bwd_bytes = 3 * rows * d * 2 + 2 * d * 2
+    out["rmsnorm_bwd"] = {
+        "shape": [rows, d], "ok": all(ok for ok, _ in oks),
+        "rel_l2": [rel for _, rel in oks],
+        "max_abs_err": max(float((a.float() - b).abs().max())
+                           for a, b in zip((dx, dw), want)),
+        "ms": graph_ms(lambda: rmsnorm_bwd_cuda(x, w, g, EPS), calls=50),
+        "plain_ms": graph_ms(lambda: _rmsnorm_bwd_plain(x, w, g, EPS),
+                             calls=20),
+        "library_ms": fwd_bwd_minus_fwd_ms(
+            lambda: F.rms_norm(xr, (d,), wr, EPS),
+            lambda: torch.autograd.grad(F.rms_norm(xr, (d,), wr, EPS),
+                                        (xr, wr), g), calls=50)["ms"],
+        "bound_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    del x, w, g, xr, wr, y, dx, dw, want
+
+    def rand():
+        return torch.randn(attn_shape, generator=gen, device=dev).to(bf)
+
+    q, k, v, do = rand(), rand(), rand(), rand()
+    timed, (o, lse, delta) = _flash_timed(q, k, v, do)
+    f = [t.float() for t in (q, k, v, do)]
+    o_ref, _ = _flash_fwd_plain(f[0], f[1], f[2], True)
+    dq_ref = _flash_bwd_dq_plain(*f, lse, delta, True)
+    dk_ref, dv_ref = _flash_bwd_dkv_plain(*f, lse, delta, True)
+    got = {"flash_fwd": [(o, o_ref)],
+           "flash_bwd_dq": [(flash_bwd_dq_cuda(q, k, v, do, lse, delta, True),
+                             dq_ref)],
+           "flash_bwd_dkv": list(zip(flash_bwd_dkv_cuda(q, k, v, do, lse,
+                                                        delta, True),
+                                     (dk_ref, dv_ref)))}
+    for name, pairs in got.items():
+        t = timed[name]
+        oks = [bf16_close(a, b) for a, b in pairs]
+        out[name] = {
+            "shape": t["shape"], "ok": all(ok for ok, _ in oks),
+            "rel_l2": [rel for _, rel in oks],
+            "max_abs_err": max(float((a.float() - b).abs().max())
+                               for a, b in pairs),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library"]["ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"]}
+    del q, k, v, do, o, lse, delta, f, o_ref, dq_ref, dk_ref, dv_ref, got
+    torch.cuda.empty_cache()
+    bad = [n for n, r in out.items() if not r["ok"]]
+    check(not bad, f"kernels disagree with their plain versions at "
+          f"{rows} x {d} / {list(attn_shape)}: {bad}")
+    return out
+
+
 def phase_train_kernels():
     """K2-K5 against their plain versions and their times at the training
     shapes. Launches made here are comparisons, not the main path's."""
@@ -780,56 +962,11 @@ def phase_train_kernels():
         return torch.randn((b, L, h, hd), generator=gen, device=dev).to(bf)
 
     q, k, v, do = rand(), rand(), rand(), rand()
-    o, lse = flash_fwd_cuda(q, k, v, True)
-    delta = _delta(o, do)
-    t_bytes = b * L * h * hd * 2  # one [b, L, h, d] bf16 tensor
-    s_bytes = b * h * L * 4  # one f32 [b, h, L] row statistic
-
-    pairs = causal_pairs(L, L)
-
-    def rec(name, kernel, plain, products, n_in, n_out, n_stats):
-        """products: score-sized matrix products; n_in/n_out: [b, L, h, d]
-        tensors read/written; n_stats: f32 [b, h, L] rows read or
-        written."""
-        flops = 2.0 * products * b * h * hd * pairs
-        nb = (n_in + n_out) * t_bytes + n_stats * s_bytes
-        t_ops = flops / BF16_FLOPS * 1e3
-        t_bytes_ms = nb / HBM_BYTES_PER_S * 1e3
-        timed[name] = {
-            "shape": [b, L, h, hd], "dtype": "bfloat16", "causal": True,
-            "ms": graph_ms(kernel, calls=10, reps=3),
-            "plain_ms": graph_ms(plain, calls=2, reps=3),
-            "bytes": nb, "flops": flops, "causal_pairs": pairs,
-            "bound_ms": max(t_ops, t_bytes_ms),
-            "bound_by": "operations" if t_ops > t_bytes_ms else "bytes",
-        }
-
-    rec("flash_fwd", lambda: flash_fwd_cuda(q, k, v, True),
-        lambda: _flash_fwd_plain(q, k, v, True), 2, 3, 1, 1)
-    rec("flash_bwd_dq",
-        lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, True),
-        lambda: _flash_bwd_dq_plain(q, k, v, do, lse, delta, True), 3, 4, 1,
-        2)
-    rec("flash_bwd_dkv",
-        lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True),
-        lambda: _flash_bwd_dkv_plain(q, k, v, do, lse, delta, True), 4, 4, 2,
-        2)
-    # The library yardstick: scaled_dot_product_attention on [b, h, L, d].
-    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    flash, (o, lse, delta) = _flash_timed(q, k, v, do)
+    timed.update(flash)
     sdpa = F.scaled_dot_product_attention
-    timed["flash_fwd"]["library"] = {
-        "ms": graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True), calls=10,
-                       reps=3),
-        "method": "F.scaled_dot_product_attention(is_causal=True), "
-                  "[8, 16, 1024, 128] bf16, CUDA graph"}
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
-    lib_bwd = fwd_bwd_minus_fwd_ms(
-        lambda: sdpa(qg, kg, vg, is_causal=True),
-        lambda: torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True),
-                                    (qg, kg, vg), dot), calls=10)
-    lib_bwd["covers"] = "dq, dk and dv together (K4 + K5)"
-    timed["flash_bwd_dq"]["library"] = lib_bwd
-    timed["flash_bwd_dkv"]["library"] = lib_bwd
 
     # A yardstick, not a gate: at the training shape, SDPA's bf16 outputs
     # and the kernels' against the plain version in f32 on the same bf16
@@ -897,10 +1034,11 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def _profile_step(step, tokens) -> dict:
+def _profile_step(step, tokens, split=None) -> dict:
     """Device time of one step by kernel group (torch.profiler). A failure
     of the step itself propagates; one of the profiler is reported as
-    'not measured'."""
+    'not measured'. split(prof), where given, adds a further breakdown
+    ("moe_split_ms") read from the same trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -936,6 +1074,8 @@ def _profile_step(step, tokens) -> dict:
             us = getattr(evt, "self_cuda_time_total", 0.0)
         if not us or evt.device_type.name != "CUDA":
             continue
+        if getattr(evt, "is_user_annotation", False) or evt.key in MOE_RANGES:
+            continue  # a record_function range's span, not a kernel
         g = _kernel_group(evt.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
         total += us / 1e3
@@ -944,18 +1084,23 @@ def _profile_step(step, tokens) -> dict:
     if total == 0.0:
         return {"device_ms": "not measured (no device time in the trace)",
                 "profiled_wall_ms": wall * 1e3}
-    return {"device_ms": total, "profiled_wall_ms": wall * 1e3,
-            "by_group_ms": dict(sorted(groups.items(),
-                                       key=lambda kv: -kv[1])),
-            "top_other": [{"ms": ms, "calls": n, "kernel": k}
-                          for ms, n, k in sorted(other, reverse=True)[:10]]}
+    rec = {"device_ms": total, "profiled_wall_ms": wall * 1e3,
+           "by_group_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+           "top_other": [{"ms": ms, "calls": n, "kernel": k}
+                         for ms, n, k in sorted(other, reverse=True)[:10]]}
+    if split is not None:
+        try:
+            rec["moe_split_ms"] = split(prof)
+        except Exception as e:  # noqa: BLE001 - the trace's shape, not the step
+            rec["moe_split_ms"] = f"not measured ({type(e).__name__}: {e})"
+    return rec
 
 
 def _predicted_launches(L: int) -> dict:
     """Kernel launches of one training step of an L-layer model, from the
     code: every layer's two norms and its attention run forward once and
-    again when dots_nobatch recomputes the layer in the backward; the
-    final norm runs once; each backward runs once."""
+    again when remat (full or dots_nobatch) recomputes the layer in the
+    backward; the final norm runs once; each backward runs once."""
     return {"rmsnorm_fwd": 2 * L + 1 + 2 * L, "rmsnorm_bwd": 2 * L + 1,
             "flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
 
@@ -1118,6 +1263,336 @@ def phase_train_parity():
           f"loss: {losses}")
     del gpu_params, opt, leaves_gpu
     torch.cuda.empty_cache()
+
+
+# -- the MoE training step: mixtral-8x7b at published widths ---------------
+# Depth cut from 32 to 4 layers (6.07 B parameters: params, grads and bf16
+# AdamW state about 48.5 GB); the whole model, 46.7 B, cannot fit one card.
+MOE_LAYERS = 4
+MOE_BATCH, MOE_SEQ, MOE_WARMUP, MOE_STEPS = 4, 1024, 1, 5
+MOE_RANGES = ("moe.routing", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+def _moe_cfg():
+    from ray_tpu_torch.models import configs
+
+    return dataclasses.replace(configs.mixtral_8x7b, n_layers=MOE_LAYERS,
+                               max_seq=MOE_SEQ)
+
+
+def _active_params(cfg, n_params: int) -> int:
+    """Parameters one token runs through: everything but the experts, plus
+    k / E of the experts (bench.py's 6ND with N the active parameters)."""
+    experts = 3 * cfg.num_experts * cfg.d_model * cfg.d_ff * cfg.n_layers
+    return n_params - experts + experts * cfg.experts_per_token \
+        // cfg.num_experts
+
+
+def _moe_split(prof) -> dict:
+    """Device ms of the MoE layers' parts in a profiled step: the ops run
+    inside each moe.* range (the forward and its recompute) and the
+    backward ops that autograd links to them by sequence number."""
+    def scoped(e):
+        while e is not None:
+            if e.name in MOE_RANGES:
+                return e.name
+            e = e.cpu_parent
+        return None
+
+    events = [e for e in prof.events() if e.device_type.name == "CPU"]
+    by_seq = {}
+    for e in events:
+        g = scoped(e)
+        if g is not None and e.sequence_nr >= 0:
+            by_seq[e.sequence_nr] = g
+    ms = dict.fromkeys(MOE_RANGES, 0.0)
+    for e in events:
+        us = e.self_device_time_total
+        if not us:
+            continue
+        g = scoped(e)
+        p = e
+        while g is None and p is not None:
+            if p.name.startswith("autograd::engine::evaluate_function"):
+                g = by_seq.get(p.sequence_nr)
+                break
+            p = p.cpu_parent
+        if g is not None:
+            ms[g] += us / 1e3
+    return ms
+
+
+class _DispatchLog:
+    """Keeps each top_k_routing call's dispatch mask on the host."""
+
+    def __init__(self):
+        from ray_tpu_torch.parallel import moe
+
+        self.mod, self.orig, self.masks = moe, moe.top_k_routing, []
+
+    def __enter__(self):
+        def logged(logits, k, capacity):
+            d, c, a = self.orig(logits, k, capacity)
+            self.masks.append(d.detach().cpu())
+            return d, c, a
+        self.mod.top_k_routing = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.top_k_routing = self.orig
+
+
+def _moe_parity() -> dict:
+    """A narrow f32 MoE (mixtral's layout at d 256, 4 experts, 2 layers,
+    head_dim 64, GQA) on the card against the CPU on the same parameters:
+    the same expert assignment, then the loss and every gradient."""
+    import torch
+
+    from ray_tpu_torch.models import init_params, loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(_moe_cfg(), d_model=256, n_heads=4,
+                              n_kv_heads=2, d_ff=512, num_experts=4,
+                              n_layers=2, vocab_size=1024, max_seq=256,
+                              dtype=torch.float32)
+    cpu_params = init_params(cfg, seed=SEED + 4, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab_size, size=(2, 129)))
+
+    def step(device):
+        params = {k: ({kk: vv.to(device) for kk, vv in v.items()}
+                      if k == "layers" else v.to(device))
+                  for k, v in cpu_params.items()}
+        leaves = _flat_params(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        with _DispatchLog() as log:
+            loss = loss_fn(params, tokens.to(device), cfg)
+            loss.backward()
+        return loss.item(), [t.grad.cpu() for t in leaves], log.masks
+
+    loss_gpu, grads_gpu, masks_gpu = step("cuda")
+    loss_cpu, grads_cpu, masks_cpu = step("cpu")
+    same_routing = len(masks_gpu) == len(masks_cpu) and all(
+        torch.equal(a, b) for a, b in zip(masks_gpu, masks_cpu))
+    names = [k for k in sorted(cpu_params) if k != "layers"] + [
+        f"layers/{k}" for k in sorted(cpu_params["layers"])]
+    leaves, ok = {}, abs(loss_gpu - loss_cpu) <= 2e-4 * abs(loss_cpu)
+    for n, g, gc in zip(names, grads_gpu, grads_cpu):
+        rel = float((g - gc).norm() / gc.norm().clamp_min(1e-30))
+        close = bool(torch.allclose(g, gc, rtol=2e-3, atol=2e-3))
+        leaves[n] = {"max_abs_err": float((g - gc).abs().max()),
+                     "rel_l2": rel, "close": close}
+        ok = ok and close and rel <= 1e-3
+    return {"model": "mixtral layout, d 256, 4 experts, 2 layers",
+            "dtype": "float32", "batch": 2, "seq": 128,
+            "routing_calls": len(masks_gpu), "same_routing": same_routing,
+            "loss_gpu": loss_gpu, "loss_cpu": loss_cpu,
+            "loss_tol": "rtol 2e-4",
+            "leaf_tol": "rtol=atol=2e-3 and rel L2 <= 1e-3",
+            "leaves": leaves, "ok": ok and same_routing}
+
+
+def _moe_plain(x, router, w, k):
+    """moe_layer's arithmetic written token by token from the routing:
+    out[t] = sum over t's kept slots of gate * (x[t] @ w[e])."""
+    import torch
+
+    from ray_tpu_torch.parallel.moe import top_k_routing
+
+    t_n, e_n = x.shape[0], router.shape[-1]
+    cap = max(1, int(1.25 * t_n * k / e_n))
+    dispatch, combine, aux = top_k_routing(x @ router, k, cap)
+    out = torch.zeros_like(x)
+    for t, e, c in dispatch.nonzero().tolist():
+        out[t] += combine[t, e, c] * (x[t] @ w[e])
+    return out, aux
+
+
+def _nccl_one_rank(tmp: str) -> dict:
+    """build_mesh(MeshConfig(), "cuda") on a one-rank NCCL group, and the
+    four primitives through it at axis size 1 against their references,
+    outputs and gradients (f32, TF32 off)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import (MeshConfig, build_mesh, moe_layer,
+                                        pipeline_stages, ring_attention,
+                                        ulysses_attention)
+    from ray_tpu_torch.parallel import _comm
+    from ray_tpu_torch.parallel.ring_attention import reference_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv",
+                            rank=0, world_size=1)
+    errs = {}
+    try:
+        mesh = build_mesh(MeshConfig(), "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * scale).requires_grad_(True)
+
+        def compare(name, got_fn, want_fn, inputs, tol):
+            ct = torch.randn_like(got_fn(*inputs).detach())
+            outs = []
+            for fn in (got_fn, want_fn):
+                for t in inputs:
+                    t.grad = None
+                o = fn(*inputs)
+                (o * ct).sum().backward()
+                outs.append([o.detach()] + [t.grad.clone() for t in inputs])
+            errs[name] = max(float((a - b).abs().max())
+                             for a, b in zip(*outs))
+            check(errs[name] <= tol, f"{name} on the NCCL mesh differs from "
+                  f"its reference by {errs[name]} (tol {tol})")
+
+        q, k, v = rand(2, 256, 4, 64), rand(2, 256, 4, 64), rand(2, 256, 4, 64)
+        for causal in (True, False):
+            compare(f"ring_attention_causal_{causal}",
+                    lambda q, k, v: ring_attention(q, k, v, mesh,
+                                                   causal=causal),
+                    lambda q, k, v: reference_attention(q, k, v, causal),
+                    (q, k, v), 2e-4)
+        compare("ulysses_attention",
+                lambda q, k, v: ulysses_attention(q, k, v, mesh),
+                lambda q, k, v: reference_attention(q, k, v, True),
+                (q, k, v), 2e-4)
+        ws, xs = rand(1, 64, 64, scale=0.1), rand(4, 8, 64)
+
+        def stage(w, x):
+            return torch.tanh(x @ w[0])
+        compare("pipeline_stages",
+                lambda w, x: pipeline_stages(stage, w, x, mesh),
+                lambda w, x: torch.stack([stage(w, xi) for xi in x]),
+                (ws, xs), 1e-5)
+        x, router, w = rand(64, 32), rand(32, 4, scale=0.1), \
+            rand(4, 32, 32, scale=0.1)
+        compare("moe_layer",
+                lambda x, r, w: moe_layer(
+                    x, r, lambda w, xin: torch.einsum("ecd,edf->ecf", xin, w),
+                    w, k=2, mesh=mesh)[0],
+                lambda x, r, w: _moe_plain(x, r, w, 2)[0], (x, router, w),
+                1e-5)
+        # One collective through NCCL itself: a gather of one rank.
+        y = torch.arange(8.0, device="cuda")
+        got = _comm._gather(y, mesh.get_group("tp"), 1, 0)
+        check(torch.equal(got, y), "NCCL's one-rank all-gather changed data")
+        rec = {"backend": dist.get_backend(), "mesh": list(mesh.mesh.shape),
+               "axes": list(mesh.mesh_dim_names), "max_abs_err": errs}
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def phase_moe_train(device_name):
+    """mixtral-8x7b at published widths, 4 layers, bf16, remat full,
+    batch 4 x 1024: loss_fn, backward and AdamW as the train phase."""
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch.models import init_params, loss_fn
+
+    parity = _moe_parity()
+    emit({"phase": "moe_parity", **parity})
+    check(parity["ok"], "the narrow MoE step on the card differs from the "
+          "CPU's (routing, loss or a gradient)")
+    with tempfile.TemporaryDirectory() as tmp:
+        nccl = _nccl_one_rank(tmp)
+    emit({"phase": "moe_nccl", **nccl})
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_cfg()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device="cuda")
+    leaves = _flat_params(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves)
+    n_active = _active_params(cfg, n_params)
+    opt = torch.optim.AdamW(leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    batches = torch.randint(0, cfg.vocab_size,
+                            (MOE_WARMUP + MOE_STEPS + 1, MOE_BATCH,
+                             MOE_SEQ + 1), generator=gen, device="cuda")
+
+    def step(tokens):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, tokens, cfg)
+        loss.backward()
+        opt.step()
+        return loss
+
+    t0 = time.perf_counter()
+    warm = [step(batches[i]).item() for i in range(MOE_WARMUP)]
+    warm_s = time.perf_counter() - t0
+    counters = _train_launch_counters()
+    # The main path starts here: counts at 0, peak memory reset.
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(MOE_STEPS):
+        t0 = time.perf_counter()
+        loss = step(batches[MOE_WARMUP + i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    predicted = _predicted_launches(L)
+    per_step = {n: c / MOE_STEPS for n, c in launches.items()}
+    with torch.no_grad():  # the first batch again, after the six steps
+        first_again = loss_fn(params, batches[0], cfg).item()
+    profile_rec = _profile_step(step, batches[-1], split=_moe_split)
+    step_ms = sorted(times)[len(times) // 2] * 1e3
+    if isinstance(profile_rec.get("device_ms"), float):
+        profile_rec["device_busy_share"] = profile_rec["device_ms"] / step_ms
+        split = profile_rec.get("moe_split_ms")
+        if isinstance(split, dict):
+            profile_rec["moe_split_share"] = {
+                g: ms / profile_rec["device_ms"] for g, ms in split.items()}
+    tokens = MOE_BATCH * MOE_SEQ
+    tok_s = tokens / (step_ms / 1e3)
+    rec = {"phase": "moe_train", "model": "mixtral-8x7b",
+           "device": device_name, "dtype": "bfloat16", "n_layers": L,
+           "depth_cut": "32 -> 4 layers", "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "d_ff": cfg.d_ff, "experts": cfg.num_experts,
+           "top_k": cfg.experts_per_token, "vocab": cfg.vocab_size,
+           "params": n_params, "active_params": n_active,
+           "remat_policy": cfg.remat_policy, "batch": MOE_BATCH,
+           "seq": MOE_SEQ, "warmup_steps": MOE_WARMUP, "steps": MOE_STEPS,
+           "init_params_s": init_s, "warmup_s": warm_s,
+           "step_ms_median": step_ms, "step_ms_all": [t * 1e3 for t in times],
+           "tokens_per_s": tok_s,
+           "mfu_6nd_active": tok_s * 6.0 * n_active / BF16_FLOPS,
+           "max_memory_allocated": peak, "warmup_losses": warm,
+           "losses": losses, "first_batch_loss_after": first_again,
+           "launches": launches,
+           "launches_per_step": per_step, "predicted_per_step": predicted,
+           "profile_one_step": profile_rec}
+    emit(rec)
+    check(n_params == 4 * 1_451_270_144 + 262_144_000 + cfg.d_model,
+          f"mixtral at 4 layers has {n_params} parameters")
+    check(all(np.isfinite(warm + losses)), f"a loss is not finite: {losses}")
+    check(first_again < warm[0], f"the first batch's loss did not fall: "
+          f"{warm[0]} -> {first_again}")
+    check(per_step == {n: float(c) for n, c in predicted.items()},
+          f"launches per step {per_step} != predicted {predicted}")
+    del params, leaves, opt, batches
+    torch.cuda.empty_cache()
+    kernels = _kernels_at(MOE_BATCH * MOE_SEQ, cfg.d_model,
+                          (MOE_BATCH, MOE_SEQ, cfg.n_heads, cfg.head_dim))
+    emit({"phase": "moe_kernels", "kernels": kernels})
+    rec["kernels"] = kernels
+    return rec
 
 
 # -- the runtime core: a GPU actor serves llama3-8b -------------------------
@@ -1867,6 +2342,10 @@ def _mapped(pid: int) -> dict:
             maps = f.read()
     except OSError:
         return {"readable": False}
+    if not maps:
+        # A process that has exited and not yet been reaped (a zombie)
+        # has no mappings left to read.
+        return {"readable": False}
     return {"readable": True, "torch": "libtorch" in maps,
             "cuda_driver": "libcuda.so" in maps,
             "jax": "jaxlib" in maps or "xla_extension" in maps}
@@ -2339,11 +2818,15 @@ def phase_trainer(train_rec, device_name):
         th.start()
         mapped = {}
         while th.is_alive():
-            # Every training worker, read while it lives.
+            # Every training worker, read while it lives. A worker is read
+            # many times, and what any read saw is kept: a read taken while
+            # the dying worker is torn down sees less than it had mapped.
             for pid in _worker_pids().values():
                 m = _mapped(pid)
                 if m["readable"]:
-                    mapped[pid] = m
+                    seen = mapped.get(pid, {})
+                    mapped[pid] = {k: v or seen.get(k, False)
+                                   for k, v in m.items()}
             th.join(1.0)
         fit_s = time.time() - t0
         if "error" in out:
@@ -4660,6 +5143,7 @@ def main() -> int:
     train_err, train_timed = run(phase_train_kernels)
     train = run(phase_train)
     run(phase_train_parity)
+    moe = run(phase_moe_train, name)
     runtime_rec = run(phase_runtime, slice_rec, name)
     runtime_launches = runtime_rec["streamed"]["rmsnorm_launches"]
     serve_launches = run(phase_serve, slice_rec, runtime_rec, name)
@@ -4696,8 +5180,10 @@ def main() -> int:
                              "data_train": data_train_launches["rmsnorm_fwd"],
                              "data_infer": data_infer_launches["rmsnorm_fwd"],
                              "loadgen": loadgen_launches,
-                             "dashboard_job": rest_job_launches},
-        "max_abs_err": max_abs,
+                             "dashboard_job": rest_job_launches,
+                             "moe_train": moe["launches"]["rmsnorm_fwd"]},
+        "max_abs_err": max(max_abs, moe["kernels"]["rmsnorm_fwd"][
+            "max_abs_err"]),
         "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
@@ -4721,8 +5207,11 @@ def main() -> int:
                                  "tune_a": tune_a_launches[kname],
                                  "tune_b": tune_b_launches[kname],
                                  "cli": cli_launches[kname],
-                                 "data_train": data_train_launches[kname]},
-            "max_abs_err": train_err[kname], "ms": t["ms"],
+                                 "data_train": data_train_launches[kname],
+                                 "moe_train": moe["launches"][kname]},
+            "max_abs_err": max(train_err[kname],
+                               moe["kernels"][kname]["max_abs_err"]),
+            "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library"]["ms"],
             "shape": t["shape"], "dtype": t["dtype"]})
@@ -4733,6 +5222,7 @@ def main() -> int:
             records[-1]["design"] = FLASH_DESIGN[kname]
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())
+        r["at_moe_train_shape"] = moe["kernels"][r["name"]]
     missing = [r["name"] for r in records
                if 0 in r["launches_by_path"].values()]
     check(not missing, f"kernels never launched on a path: {missing}")

@@ -11,8 +11,18 @@ dictionary of tensors with the JAX package's keys and its layer-stacked
 stacked leaves (so gradients land on the stacked tensors), its
 `jax.checkpoint` policies become `torch.utils.checkpoint` with the same
 three policies, and every RMSNorm and attention runs the hand-written
-CUDA kernels on a CUDA tensor. MoE layers and meshes (ring/Ulysses
-attention, pipeline parallelism) wait for the parallelism slice.
+CUDA kernels on a CUDA tensor. MoE layers run parallel/moe.py.
+
+Under a mesh (parallel.build_mesh) each rank passes its local shards
+(parallel.shard_params with param_logical_axes) and its block of the
+tokens, and the layers issue what GSPMD inserts in the reference: the
+batch splits over dp/fsdp and the sequence over sp (ring or Ulysses
+attention by cfg.attn_impl); heads and MLP split over tp, with an
+all-reduce after wo and w_down; experts split over ep; every other
+sharded parameter dimension is gathered for use (fsdp's, whose backward
+reduce-scatters, and the vocabulary's tp blocks); the layer stack splits
+over pp in forward_pipelined. Gradients come out as the unsharded
+program's, each on the rank's shard.
 """
 
 from __future__ import annotations
@@ -32,9 +42,14 @@ from ray_tpu_torch.ops import apply_rope, flash_attention, rmsnorm
 from ray_tpu_torch.ops.cross_entropy import (chunked_lm_head_ce,
                                              softmax_cross_entropy)
 from ray_tpu_torch.ops.rope import rope_tables
-
-_PARALLEL = ("needs the parallelism slice (ROADMAP A5), which the PyTorch "
-             "port does not have yet")
+from ray_tpu_torch.parallel import _comm
+from ray_tpu_torch.parallel.mesh import (axis_index, axis_size,
+                                         local_shard, logical_to_physical,
+                                         spec_axes)
+from ray_tpu_torch.parallel.moe import moe_layer
+from ray_tpu_torch.parallel.pipeline import pipeline_stages
+from ray_tpu_torch.parallel.ring_attention import ring_attention
+from ray_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 @dataclass(frozen=True)
@@ -52,8 +67,9 @@ class TransformerConfig:
     # MoE (0 experts = dense)
     num_experts: int = 0
     experts_per_token: int = 2
-    # Training-path knobs, kept so every named config maps field for
-    # field; the serving slice does not read them.
+    # Training-path knobs; the serving slice does not read them. Attention
+    # under an sp mesh: "flash" | "ring" | "ulysses". The Pallas block
+    # sizes are kept so every named config maps field for field.
     attn_impl: str = "flash"
     attn_block_q: int = 256
     attn_block_k: int = 512
@@ -152,6 +168,87 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None) -> Dict:
     return params
 
 
+def param_logical_axes(cfg: TransformerConfig) -> Dict:
+    """Logical sharding axes mirroring init_params' tree.
+
+    Mapped through parallel.mesh.DEFAULT_RULES: "embed"->fsdp, "mlp"/
+    "heads"/"vocab"->tp, "expert"->ep, layer-stack axis -> "stage" (pp).
+    """
+    layer = {
+        "attn_norm": ("stage", None),
+        "wq": ("stage", "embed", "heads"),
+        "wk": ("stage", "embed", "heads"),
+        "wv": ("stage", "embed", "heads"),
+        "wo": ("stage", "heads", "embed"),
+        "mlp_norm": ("stage", None),
+    }
+    if cfg.qk_norm:
+        layer["q_norm"] = ("stage", None)
+        layer["k_norm"] = ("stage", None)
+    if cfg.num_experts == 0:
+        layer.update(
+            {
+                "w_gate": ("stage", "embed", "mlp"),
+                "w_up": ("stage", "embed", "mlp"),
+                "w_down": ("stage", "mlp", "embed"),
+            }
+        )
+    else:
+        layer.update(
+            {
+                "router": ("stage", "embed", None),
+                "w_gate": ("stage", "expert", "embed", "mlp"),
+                "w_up": ("stage", "expert", "embed", "mlp"),
+                "w_down": ("stage", "expert", "mlp", "embed"),
+            }
+        )
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": layer,
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+# Parameter dimensions a layer computes split (heads and MLP over tp,
+# experts over ep): they stay local. Every other sharded dimension is
+# gathered for use.
+_SPLIT_COMPUTE = ("heads", "mlp", "expert")
+
+
+def _usable_leaf(p, logical, mesh, data_axes, keep=()):
+    """One parameter shard made ready to use under `mesh`: each dimension
+    sharded over an axis is gathered unless the layer computes it split
+    (_SPLIT_COMPUTE, plus `keep`). A gather over a data axis transposes
+    to a reduce-scatter (ZeRO-3); over a model axis, to the rank's slice.
+    A leaf replicated over a data axis in `data_axes` has its gradient
+    summed over that axis, as the reference's batch gradients are."""
+    spec = logical_to_physical(logical)
+    used = {a for entry in spec for a in spec_axes(entry)}
+    p = _comm.reduce_grad(p, mesh, [a for a in data_axes if a not in used])
+    for dim, (name, entry) in enumerate(zip(logical, spec)):
+        if name in _SPLIT_COMPUTE or name in keep:
+            continue
+        for axis in reversed(spec_axes(entry)):  # the minor axis first
+            p = _comm.all_gather(p, mesh, (axis,), dim,
+                                 sum_grads=axis in _comm.DATA_AXES)
+    return p
+
+
+def _usable_params(params: Dict, cfg: TransformerConfig, mesh, data_axes,
+                   keep=()) -> Dict:
+    """_usable_leaf over the whole tree."""
+    axes = param_logical_axes(cfg)
+    out = {k: _usable_leaf(v, axes[k], mesh, data_axes, keep)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: _usable_leaf(v, axes["layers"][k], mesh, data_axes,
+                                     keep)
+                     for k, v in params["layers"].items()}
+    return out
+
+
 def layer_params(params: Dict):
     """Per-layer views of the stacked layer tensors: a list of L dicts."""
     layers = params["layers"]
@@ -193,26 +290,95 @@ def project_logits(x: torch.Tensor, params, cfg: TransformerConfig):
     return logits
 
 
-def _layer_body(cfg: TransformerConfig, x, lp, cos, sin, positions):
-    """One decoder layer, with the reference's casts."""
+def _attention(cfg: TransformerConfig, q, k, v, mesh, seq_sharded: bool):
+    """Causal attention of this rank's heads. With the sequence split over
+    sp: ring or Ulysses attention by cfg.attn_impl, else the flash kernel
+    on the gathered sequence."""
+    if not seq_sharded:
+        return flash_attention(q, k, v, causal=True)
+    if cfg.attn_impl in ("ring", "ulysses"):
+        if k.shape[2] != q.shape[2]:  # GQA: one kv head per q head
+            group = q.shape[2] // k.shape[2]
+            k = k.repeat_interleave(group, dim=2)
+            v = v.repeat_interleave(group, dim=2)
+        fn = ring_attention if cfg.attn_impl == "ring" else ulysses_attention
+        return fn(q, k, v, mesh, axis_name="sp", causal=True)
+    q, k, v = (_comm.all_gather(t, mesh, ("sp",), 1, sum_grads=True)
+               for t in (q, k, v))
+    return local_shard(flash_attention(q, k, v, causal=True),
+                       (None, "sp"), mesh)
+
+
+def _moe_mlp(cfg: TransformerConfig, h, lp, mesh, seq_sharded: bool):
+    """The MoE MLP in f32, as the reference runs it. Routing and capacity
+    are over the whole batch: the tokens are gathered over the data axes
+    in global order, and this rank keeps its block of the output."""
+    act = _act(cfg)
+    token_spec = (("dp", "fsdp"), "sp" if seq_sharded else None)
+    for dim, entry in enumerate(token_spec):
+        h = _comm.all_gather(h, mesh, spec_axes(entry), dim, sum_grads=True)
+    b, l, d = h.shape
+
+    def expert_fn(w, xin):  # xin: [E, C, D]; jnp.einsum promotes to f32
+        xin = _comm.reduce_grad(xin, mesh, ("tp",))
+        g = act(torch.einsum("ecd,edf->ecf", xin, w["gate"].float()))
+        u = torch.einsum("ecd,edf->ecf", xin, w["up"].float())
+        out = torch.einsum("ecf,efd->ecd", g * u, w["down"].float())
+        return _comm.all_reduce(out, mesh, ("tp",))
+
+    out, aux = moe_layer(
+        h.reshape(b * l, d).float(), lp["router"].float(), expert_fn,
+        {"gate": lp["w_gate"], "up": lp["w_up"], "down": lp["w_down"]},
+        k=cfg.experts_per_token, mesh=mesh)
+    return local_shard(out.reshape(b, l, d), token_spec, mesh), aux
+
+
+def _layer_body(cfg: TransformerConfig, x, lp, cos, sin, positions,
+                mesh=None, seq_sharded: bool = False):
+    """One decoder layer, with the reference's casts. Returns (x, aux)."""
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     b, l, _ = h.shape
-    q = (h @ lp["wq"]).reshape(b, l, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+    tp = axis_size(mesh, "tp")
+    if cfg.n_heads % tp:
+        raise ValueError(f"{cfg.n_heads} heads do not split over tp={tp}")
+    wk, wv = lp["wk"], lp["wv"]
+    kv_split = cfg.n_kv_heads % tp == 0
+    if not kv_split:
+        # Fewer kv heads than tp splits: every rank projects them all and
+        # keeps, per q head, its kv head; the ranks' gradients of the
+        # gathered weights (each from its own heads) are summed.
+        wk, wv = (_comm.all_gather(w, mesh, ("tp",), 1, sum_grads=True)
+                  for w in (wk, wv))
+    n_kv = cfg.n_kv_heads // tp if kv_split else cfg.n_kv_heads
+    h_in = _comm.reduce_grad(h, mesh, ("tp",))
+    q = (h_in @ lp["wq"]).reshape(b, l, cfg.n_heads // tp, cfg.head_dim)
+    k = (h_in @ wk).reshape(b, l, n_kv, cfg.head_dim)
+    v = (h_in @ wv).reshape(b, l, n_kv, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, lp["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, lp["k_norm"], cfg.norm_eps)
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
-    attn = flash_attention(q, k, v, causal=True)
-    x = x + (attn.reshape(b, l, -1) @ lp["wo"]).to(x.dtype)
+    if not kv_split:
+        group = cfg.n_heads // cfg.n_kv_heads
+        k, v = (local_shard(t.repeat_interleave(group, dim=2),
+                            (None, None, "tp"), mesh) for t in (k, v))
+    attn = _attention(cfg, q, k, v, mesh, seq_sharded)
+    attn_out = _comm.all_reduce(attn.reshape(b, l, -1) @ lp["wo"], mesh,
+                                ("tp",))
+    x = x + attn_out.to(x.dtype)
 
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.num_experts:
+        mlp_out, aux = _moe_mlp(cfg, h, lp, mesh, seq_sharded)
+        return x + mlp_out.to(x.dtype), aux
     act = _act(cfg)
-    gate = act((h @ lp["w_gate"]).float())
-    up = (h @ lp["w_up"]).float()
-    return x + (gate * up).to(x.dtype) @ lp["w_down"]
+    h_in = _comm.reduce_grad(h, mesh, ("tp",))
+    gate = act((h_in @ lp["w_gate"]).float())
+    up = (h_in @ lp["w_up"]).float()
+    mlp_out = _comm.all_reduce((gate * up).to(x.dtype) @ lp["w_down"], mesh,
+                               ("tp",))
+    return x + mlp_out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # Ops whose outputs each remat policy saves; everything else is recomputed
@@ -252,23 +418,31 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
             return_hidden: bool = False):
     """Returns (logits [B, L, vocab], aux_loss scalar); with return_hidden,
     the pre-lm_head hidden states [B, L, D] instead of logits (the
-    chunked-CE loss applies lm_head itself). tokens: [B, L] integers."""
-    if cfg.num_experts:
-        raise NotImplementedError(f"MoE layers {_PARALLEL}")
+    chunked-CE loss applies lm_head itself). tokens: [B, L] integers.
+
+    Under a mesh, `params` are the rank's shards and `tokens` its block
+    ([B/(dp*fsdp), L/sp]); the logits (whole vocabulary) are its block
+    too, and aux_loss the whole batch's, the same on every rank."""
+    seq_sharded = axis_size(mesh, "sp") > 1
     if mesh is not None:
-        raise NotImplementedError(
-            f"a device mesh (attn_impl={cfg.attn_impl!r}, pipeline or "
-            f"sharded layers) {_PARALLEL}")
+        params = _usable_params(params, cfg, mesh, _comm.DATA_AXES)
     x = _embed_tokens(params, tokens, cfg)
     cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                            x.device)
-    body = functools.partial(_layer_body, cfg)
+    if positions is None and seq_sharded:
+        # RoPE and the causal mask take global positions.
+        b, l = tokens.shape
+        start = axis_index(mesh, "sp") * l
+        positions = (start + torch.arange(l, device=x.device)).expand(b, l)
+    body = functools.partial(_layer_body, cfg, mesh=mesh,
+                             seq_sharded=seq_sharded)
     if cfg.remat:
         body = _remat(body, cfg)
-    for lp in layer_params(params):
-        x = body(x, lp, cos, sin, positions)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in layer_params(params):
+        x, layer_aux = body(x, lp, cos, sin, positions)
+        aux = aux + layer_aux
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, aux
     return project_logits(x, params, cfg), aux
@@ -276,22 +450,109 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
 
 def forward_pipelined(params: Dict, tokens: torch.Tensor,
                       cfg: TransformerConfig, mesh, num_microbatches=None):
-    """The reference's GPipe forward over a "pp" mesh axis."""
-    raise NotImplementedError(f"pipeline parallelism {_PARALLEL}")
+    """Pipeline-parallel forward: the layer stack shards over "pp" stages.
+
+    Each pp rank holds n_layers/S contiguous layers (its shards from
+    shard_params) and its batch block of the tokens ([B/(dp*fsdp), L]);
+    microbatches of that block stream through the GPipe schedule of
+    parallel.pipeline.pipeline_stages. Embedding and the LM head run on
+    every rank. The microbatch count and its errors are the reference's,
+    from the global batch B.
+    """
+    S = axis_size(mesh, "pp")
+    dp_extent = axis_size(mesh, "dp") * axis_size(mesh, "fsdp")
+    b_local, l = tokens.shape
+    b = b_local * dp_extent
+    M = num_microbatches or cfg.pp_microbatches
+    if not M:
+        # Auto: prefer 2*S microbatches, but each microbatch's batch dim
+        # must still split over dp/fsdp.
+        for cand in (2 * S, S, 1):
+            if b % cand == 0 and (b // cand) % dp_extent == 0:
+                M = cand
+                break
+        else:
+            raise ValueError(
+                f"batch {b} cannot form pp microbatches divisible by the "
+                f"dp extent {dp_extent}; pick batch = k * {S} * {dp_extent}"
+            )
+    if b % M != 0:
+        raise ValueError(f"batch {b} not divisible by {M} pp microbatches")
+    if (b // M) % dp_extent != 0:
+        raise ValueError(
+            f"microbatch size {b // M} not divisible by dp extent "
+            f"{dp_extent} (batch {b}, {M} microbatches)"
+        )
+    if cfg.n_layers % S != 0:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by pp={S}")
+    if cfg.num_experts:
+        raise ValueError(
+            "pipeline parallelism currently supports dense layers only "
+            "(the MoE aux loss does not thread through the pp schedule)"
+        )
+
+    # Inside the pipeline the sequence stays whole: only dp/fsdp split
+    # the tokens.
+    params = _usable_params(params, cfg, mesh, ("dp", "fsdp"),
+                            keep=("stage",))
+    x = _embed_tokens(params, tokens, cfg)
+    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                           x.device)
+    body = functools.partial(_layer_body, cfg, mesh=mesh)
+    if cfg.remat:
+        body = _remat(body, cfg)
+
+    def stage_fn(stage_layers, act):
+        # stage_layers: leaves [n_layers/S, ...] — this rank's stage.
+        for lp in layer_params({"layers": stage_layers}):
+            act, _ = body(act, lp, cos, sin, None)
+        return act
+
+    d = x.shape[-1]
+    xm = x.reshape(M, b_local // M, l, d)
+    ym = pipeline_stages(stage_fn, params["layers"], xm, mesh, axis_name="pp")
+    x = rmsnorm(ym.reshape(b_local, l, d), params["final_norm"], cfg.norm_eps)
+    return (project_logits(x, params, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def loss_fn(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
             mesh=None, aux_weight: float = 0.01) -> torch.Tensor:
     """Next-token LM loss (f32 scalar). tokens: [B, L]; predicts
-    tokens[:, 1:] from tokens[:, :-1]."""
-    labels = tokens[:, 1:]
-    if cfg.ce_chunk:
-        hidden, aux = forward(params, tokens[:, :-1], cfg, mesh,
-                              return_hidden=True)
-        loss = chunked_lm_head_ce(hidden, lm_head_weight(params, cfg), labels,
-                                  cfg.ce_chunk,
-                                  softcap=cfg.final_logit_softcap)
-        return loss + aux_weight * aux
-    logits, aux = forward(params, tokens[:, :-1], cfg, mesh)
-    loss = softmax_cross_entropy(logits, labels).mean()
-    return loss + aux_weight * aux
+    tokens[:, 1:] from tokens[:, :-1].
+
+    Under a mesh, `tokens` is the rank's batch block [B/(dp*fsdp), L]
+    with the whole sequence (the shift crosses sp blocks); every rank
+    returns the whole batch's loss, and its backward gives the rank's
+    shards the unsharded gradient. With pp > 1 the forward runs the
+    GPipe microbatch pipeline and its backward differentiates through it.
+    """
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    pipelined = axis_size(mesh, "pp") > 1
+    data_axes = ("dp", "fsdp") if pipelined else _comm.DATA_AXES
+    if pipelined:
+        logits, aux = forward_pipelined(params, inputs, cfg, mesh)
+        loss = softmax_cross_entropy(logits, labels).mean()
+    else:
+        if axis_size(mesh, "sp") > 1:
+            inputs, labels = (local_shard(t, (None, "sp"), mesh)
+                              for t in (inputs, labels))
+        if cfg.ce_chunk:
+            hidden, aux = forward(params, inputs, cfg, mesh,
+                                  return_hidden=True)
+            head = lm_head_weight(params, cfg)
+            if mesh is not None:
+                head = _usable_leaf(head, ("embed", "vocab"), mesh,
+                                    _comm.DATA_AXES)
+            loss = chunked_lm_head_ce(hidden, head, labels, cfg.ce_chunk,
+                                      softcap=cfg.final_logit_softcap)
+        else:
+            logits, aux = forward(params, inputs, cfg, mesh)
+            loss = softmax_cross_entropy(logits, labels).mean()
+    # Every rank's block holds as many tokens, so the mean over the batch
+    # is the sum over the data axes of each block's mean over their count.
+    # aux is the whole batch's on every rank: each carries its share.
+    n = 1
+    for a in data_axes:
+        n *= axis_size(mesh, a)
+    return _comm.all_reduce((loss + aux_weight * aux) / n, mesh, data_axes)

@@ -40,8 +40,8 @@ class ScalingConfig:
     num_workers: worker processes.
     use_gpu / gpus_per_worker: the GPUs each worker holds (resource
       "GPU"; a fraction shares one card).
-    mesh: optional mesh description the workers jointly build (kept for
-      the API; the port's meshes come with ROADMAP A5).
+    mesh: optional parallel.MeshConfig describing the global mesh the
+      workers jointly build (parallel.build_mesh over the gang's group).
     elastic: opt into resize-instead-of-restart under partial
       reclamation (requires an elastic-aware loop calling
       train.sync_resize at step boundaries).
@@ -52,7 +52,7 @@ class ScalingConfig:
     gpus_per_worker: float = 1.0
     resources_per_worker: Optional[Dict[str, float]] = None
     placement_strategy: str = "PACK"
-    mesh: Optional[Any] = None
+    mesh: Optional[Any] = None  # parallel.MeshConfig
     # Preemption tier of the gang's placement group: lower-priority gangs
     # are the first evicted when higher-priority demand cannot place.
     priority: int = 0

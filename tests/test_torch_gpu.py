@@ -319,6 +319,123 @@ def test_loss_and_grads_on_card_match_cpu(cuda_device, remat):
         assert float((g.cpu() - gc).norm() / gc.norm()) <= 1e-3
 
 
+def test_moe_step_on_card_matches_cpu(cuda_device, monkeypatch):
+    """One MoE training step (mixtral's layout narrowed: d 256, 4 experts,
+    2 layers, head_dim 64, GQA) through the kernels against the same f32
+    step on the CPU: the same expert assignment in every routing call,
+    then the loss and every gradient, the router's included."""
+    from ray_tpu_torch.parallel import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.mixtral_8x7b, d_model=256, n_heads=4,
+                              n_kv_heads=2, d_ff=512, num_experts=4,
+                              n_layers=2, vocab_size=1024, max_seq=256,
+                              dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 129),
+                           generator=torch.Generator().manual_seed(4))
+    masks = []
+    orig = moe.top_k_routing
+
+    def logged(logits, k, capacity):
+        out = orig(logits, k, capacity)
+        masks.append(out[0].detach().cpu())
+        return out
+
+    monkeypatch.setattr(moe, "top_k_routing", logged)
+
+    def step(device):
+        params = init_params(cfg, seed=4, device="cpu")
+        keys = sorted(params["layers"])
+        flat = [params["embed"], params["lm_head"], params["final_norm"],
+                *(params["layers"][k] for k in keys)]
+        flat = [t.to(device).requires_grad_(True) for t in flat]
+        p = {"embed": flat[0], "lm_head": flat[1], "final_norm": flat[2],
+             "layers": dict(zip(keys, flat[3:]))}
+        del masks[:]
+        loss = loss_fn(p, tokens.to(device), cfg)
+        loss.backward()
+        assert float(p["layers"]["router"].grad.abs().sum()) > 0
+        return loss, [t.grad for t in flat], list(masks)
+
+    loss, grads, routed = step(cuda_device)
+    torch.cuda.synchronize()
+    loss_cpu, grads_cpu, routed_cpu = step("cpu")
+    # Each layer routes in the forward and again in remat's recompute.
+    assert len(routed) == len(routed_cpu) == 2 * cfg.n_layers
+    for a, b in zip(routed, routed_cpu):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(loss.cpu(), loss_cpu, rtol=2e-4, atol=0)
+    for g, gc in zip(grads, grads_cpu):
+        torch.testing.assert_close(g.cpu(), gc, rtol=2e-3, atol=2e-3)
+        assert float((g.cpu() - gc).norm() / gc.norm()) <= 1e-3
+
+
+def test_parallel_primitives_on_a_one_rank_nccl_mesh(cuda_device, tmp_path):
+    """build_mesh(MeshConfig(), "cuda") on a one-rank NCCL group; ring and
+    Ulysses attention, the GPipe schedule and moe_layer through it at axis
+    size 1, outputs and gradients against the unsharded references (f32,
+    TF32 off): attention within 2e-4, the others within 1e-5."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import (MeshConfig, build_mesh, moe_layer,
+                                        pipeline_stages, ring_attention,
+                                        ulysses_attention)
+    from ray_tpu_torch.parallel._comm import _gather
+    from ray_tpu_torch.parallel.ring_attention import reference_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        mesh = build_mesh(MeshConfig(), "cuda")
+        assert dist.get_backend() == "nccl"
+        assert mesh.mesh_dim_names == ("dp", "pp", "ep", "fsdp", "sp", "tp")
+        gen = torch.Generator(device=cuda_device).manual_seed(6)
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=cuda_device)
+                    * scale).requires_grad_(True)
+
+        def check(got_fn, want_fn, inputs, tol):
+            outs = []
+            for fn in (got_fn, want_fn):
+                for t in inputs:
+                    t.grad = None
+                o = fn(*inputs)
+                (o * torch.cos(torch.arange(o.numel(), device=o.device)
+                               .reshape(o.shape).float())).sum().backward()
+                outs.append([o.detach()] + [t.grad.clone() for t in inputs])
+            for a, b in zip(*outs):
+                torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+        q, k, v = (rand(2, 256, 4, 64) for _ in range(3))
+        for causal in (True, False):
+            check(lambda q, k, v: ring_attention(q, k, v, mesh,
+                                                 causal=causal),
+                  lambda q, k, v: reference_attention(q, k, v, causal),
+                  (q, k, v), 2e-4)
+        check(lambda q, k, v: ulysses_attention(q, k, v, mesh),
+              lambda q, k, v: reference_attention(q, k, v, True),
+              (q, k, v), 2e-4)
+
+        def stage(w, x):
+            return torch.tanh(x @ w[0])
+        check(lambda w, x: pipeline_stages(stage, w, x, mesh),
+              lambda w, x: torch.stack([stage(w, xi) for xi in x]),
+              (rand(1, 64, 64, scale=0.1), rand(4, 8, 64)), 1e-5)
+
+        def experts(w, xin):
+            return torch.einsum("ecd,edf->ecf", xin, w)
+        check(lambda x, r, w: moe_layer(x, r, experts, w, k=2, mesh=mesh)[0],
+              lambda x, r, w: moe_layer(x, r, experts, w, k=2)[0],
+              (rand(64, 32), rand(32, 4, scale=0.1),
+               rand(4, 32, 32, scale=0.1)), 1e-5)
+        y = torch.arange(8.0, device=cuda_device)
+        assert torch.equal(_gather(y, mesh.get_group("tp"), 1, 0), y)
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("name", ["tiny", "tiny_qwen"])
 def test_engine_on_card_equals_generate(cuda_device, engines, name):
     cfg = configs.NAMED_CONFIGS[name]

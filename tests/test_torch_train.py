@@ -21,6 +21,7 @@ element of wv 7.3e-6 apart, all others within 1.2e-6.
 
 import dataclasses
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -185,23 +186,46 @@ def test_adamw_steps_match_optax():
 
 
 def test_remat_policies_and_refusals():
+    """A bogus remat policy raises; MoE layers train; and the pipeline's
+    refusals (MoE under pp, layers or batch that do not split) are the
+    reference's, message for message. Those raise before any
+    communication, so the port's side takes a stand-in with a mesh's
+    axis names and sizes."""
     cfg = dataclasses.replace(configs.tiny, remat=True, remat_policy="bogus")
     params = tf.init_params(configs.tiny, seed=0, device="cpu")
     tok = torch.from_numpy(_tokens(cfg)).long()
     with pytest.raises(ValueError, match="unknown remat_policy 'bogus'"):
         loss_fn(params, tok, cfg)
     moe = tf.init_params(configs.tiny_moe, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        forward(moe, tok, configs.tiny_moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        loss_fn(moe, tok, configs.tiny_moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        loss_fn(params, tok, configs.tiny, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tf.forward_pipelined(params, tok, configs.tiny, mesh=object())
-    ring = dataclasses.replace(configs.tiny, attn_impl="ring")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        forward(params, tok, ring, mesh=object())
+    assert bool(torch.isfinite(loss_fn(moe, tok, configs.tiny_moe)))
+
+    from ray_tpu.parallel import MeshConfig, build_mesh
+
+    three = dataclasses.replace(configs.tiny, n_layers=3)
+    cases = [  # (config name or config, mesh sizes, global batch, M)
+        ("tiny_moe", {"pp": 2}, 2, None),
+        (three, {"pp": 2}, 2, None),
+        ("tiny", {"pp": 2}, 3, 2),
+        ("tiny", {"dp": 2, "pp": 2}, 4, 4),
+    ]
+    for name, sizes, batch, m in cases:
+        tcfg = configs.NAMED_CONFIGS[name] if isinstance(name, str) else name
+        jcfg = (jax_configs.NAMED_CONFIGS[name] if isinstance(name, str)
+                else dataclasses.replace(jax_configs.tiny, n_layers=3))
+        jmesh = build_mesh(MeshConfig(**sizes),
+                           jax.devices()[:int(np.prod(list(sizes.values())))])
+        tree = jax_tf.init_params(jax.random.PRNGKey(0), jcfg)
+        with pytest.raises(ValueError) as want:
+            jax_tf.forward_pipelined(tree, jnp.zeros((batch, 8), jnp.int32),
+                                     jcfg, jmesh, num_microbatches=m)
+        stand_in = types.SimpleNamespace(mesh_dim_names=tuple(sizes),
+                                         shape=tuple(sizes.values()))
+        local = batch // sizes.get("dp", 1)
+        with pytest.raises(ValueError) as got:
+            tf.forward_pipelined(tf.init_params(tcfg, seed=0, device="cpu"),
+                                 torch.zeros((local, 8), dtype=torch.long),
+                                 tcfg, stand_in, num_microbatches=m)
+        assert str(got.value) == str(want.value)
 
 
 def test_forward_positions_and_hidden():
