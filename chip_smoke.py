@@ -221,6 +221,48 @@ prints no result line:
            stop` leaves no process. Prints offered and achieved QPS,
            output tokens/s, client TTFB and e2e p50/p99 by tenant, the gap
            fraction, the server's phase medians and the /metrics scrape.
+  collective
+           util.collective on the card: the local group at world size 1
+           through NCCL (each op's result on the card, equal to world size
+           1's); four num_gpus=0.25 actors in a DCN group run allreduce
+           (ring and recursive doubling, each forced by
+           RT_COLLECTIVE_ALGO), allgather, reducescatter, broadcast,
+           send/recv and barrier on 256 MiB of bf16 a rank (small
+           integers: each result bit-equal to a ring-order sum made on the
+           card and returned on the card), int8 and fp8 quantized
+           allreduce of random values within n x the codec's radius x the
+           inputs' absmax plus the bf16 rounding, the codes made on the
+           card equal to the CPU's, and 200 one-element allreduces (alpha);
+           every op reaches an observer with its record; two num_gpus=0.5
+           actors in a hierarchical group give the flat sum. Prints each
+           op's seconds, bus GB/s and alpha.
+  train_dcn
+           TorchTrainer with two num_gpus=0.5 workers on the card,
+           TorchConfig(backend="gloo", dp_sync="dcn"): first a narrow f32
+           llama's gradient, reduced over "train_dp", against one
+           process's over the whole batch (rel L2 <= 1e-5); then llama2-1b
+           (full width and depth, bf16, dots_nobatch, seed 0, AdamW), 4 x
+           1024 rows a rank of one 8 x 1024 batch every step, gradients
+           through allreduce_gradients(grads, "train_dp"): step 1's
+           reduced gradient against one process's over the 8 x 1024 batch
+           (rel L2 <= 2e-2), a checkpoint after step 2, rank 1's
+           chaos.sever_dcn_peer at step 3 (rank 0's op must raise
+           CollectiveTimeoutError within its deadline), the restart at
+           gang epoch 1 from the checkpoint (an epoch-0 ident refused; the
+           repeated step's loss within rtol 1e-5), steps to 5 with a
+           falling loss; launches a step as train's, the flight
+           recorder's collective share equal to the observed ops' wall;
+           then all five kernels at the DP shape against their plain
+           versions. Prints step ms, the collective share and DCN GB/s.
+  serve_tp
+           ten greedy requests (the slice phase's prompts) to a mesh-less
+           llama3-8b engine in this process, then to llm_deployment with a
+           loader that returns (params, cfg, mesh) on a one-rank NCCL mesh
+           (full width and depth, bf16): the same tokens, 65 RMSNorms a
+           pass; then a narrow f32 llama3 layout at tp=2 in two processes
+           on the card over gloo (gloo on card tensors checked first)
+           against the same model at tp=1: the same tokens. Prints the
+           decode step ms of each.
 
 Then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -5110,6 +5152,927 @@ def phase_loadgen(device_name):
     return counts["rmsnorm_launches"], task["launches"]
 
 
+# -- the collective layer: DCN rings, the local and hierarchical groups -----
+COLLECTIVE_RANKS = 4
+COLLECTIVE_MIB = 256     # bf16 payload per rank
+COLLECTIVE_ALPHA_OPS = 200
+COLLECTIVE_GROUP = "smoke_dcn"
+
+
+class _CollectiveRank:
+    """One actor of the collective phase. Made a remote class with
+    fractional GPUs in the phase, so that several share the one card."""
+
+    def init_collective(self, world_size, rank, backend, group_name):
+        import os
+
+        from ray_tpu_torch.util import collective as col
+
+        self.col, self.rank, self.world = col, rank, world_size
+        self.group_name = group_name
+        self.seen = []
+        col.add_op_observer(
+            lambda op, s, info=None: self.seen.append([op, s, info]))
+        self.group = col.init_collective_group(world_size, rank, backend,
+                                               group_name)
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    def _inputs(self, r, integer, n):
+        import torch
+
+        g = torch.Generator(device="cuda").manual_seed(
+            SEED + 100 + r + (1000 if integer else 0))
+        x = torch.randn(n, generator=g, device="cuda")
+        if integer:  # small integers: every sum is exact in bf16
+            x = torch.round(x * 4).clamp_(-16, 16)
+        return x.to(torch.bfloat16)
+
+    def _timed(self, name, fn, times):
+        import time as _time
+
+        import torch
+
+        self.col.barrier(self.group_name)
+        t0 = _time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = _time.perf_counter() - t0
+        return out
+
+    def run_dcn(self, mib):
+        """Every DCN op on card tensors of `mib` MiB of bf16, each checked
+        against a reference made on the card; op times; alpha; the
+        observer's records."""
+        import os
+        import time as _time
+
+        import torch
+
+        from ray_tpu_torch.util.collective import quant
+
+        col, g, n, r = self.col, self.group_name, self.world, self.rank
+        numel = mib * 2 ** 20 // 2
+        ints = [self._inputs(k, True, numel) for k in range(n)]
+        mine = ints[r]
+        # The ring's order: chunk c starts at rank c and each next rank
+        # adds its own to what it received, in bf16 on the card.
+        chunks = [x.tensor_split(n) for x in ints]
+        ref = torch.cat([self._ring_sum(chunks, c, n) for c in range(n)])
+        times, ok, bits = {}, {}, lambda t: t.view(torch.int16)
+        for algo in ("ring", "rd"):  # connect each schedule's links
+            col.allreduce(torch.ones(1), g, algo=algo)
+        self.seen.clear()
+        for algo in ("ring", "rd"):
+            os.environ["RT_COLLECTIVE_ALGO"] = algo
+            out = self._timed(f"allreduce_{algo}",
+                              lambda: col.allreduce(mine, g), times)
+            ok[f"allreduce_{algo}"] = bool(
+                out.device == mine.device and torch.equal(bits(out),
+                                                          bits(ref)))
+            ok[f"allreduce_{algo}_algo"] = (
+                col.last_op_info(g)["algo"] == algo)
+        os.environ.pop("RT_COLLECTIVE_ALGO")
+        outs = self._timed("allgather", lambda: col.allgather(mine, g),
+                           times)
+        ok["allgather"] = all(torch.equal(bits(a), bits(b))
+                              and a.is_cuda for a, b in zip(outs, ints))
+        del outs
+        out = self._timed("reducescatter",
+                          lambda: col.reducescatter(mine, g), times)
+        ok["reducescatter"] = torch.equal(bits(out),
+                                          bits(ref.tensor_split(n)[r]))
+        out = self._timed("broadcast", lambda: col.broadcast(mine, 0, g),
+                          times)
+        ok["broadcast"] = torch.equal(bits(out), bits(ints[0]))
+
+        def sendrecv():
+            if r == 0:
+                col.send(mine, 1, g)
+                return None
+            if r == 1:
+                return col.recv(mine, 0, g)
+            return None
+
+        out = self._timed("send_recv", sendrecv, times)
+        ok["send_recv"] = (r != 1 or (out.is_cuda and torch.equal(
+            bits(out), bits(ints[0]))))
+        self._timed("barrier", lambda: col.barrier(g), times)
+        ops = [s[0] for s in self.seen]
+        # Random inputs through the quantized ring: within the codec's
+        # per-hop radius times the hops, plus the output's bf16 rounding.
+        rands = [self._inputs(k, False, numel) for k in range(n)]
+        exact = sum(x.float() for x in rands)
+        peak_sum = sum(float(x.float().abs().max()) for x in rands)
+        quant_rec = {}
+        for scheme in ("int8", "fp8"):
+            radius = max(quant.roundtrip_error(x, scheme) for x in rands)
+            out = self._timed(f"allreduce_{scheme}", lambda: col.allreduce(
+                rands[r], g, quant=scheme), times)
+            err = (out.float() - exact).abs()
+            bound = n * radius * peak_sum + exact.abs() * 2.0 ** -8
+            quant_rec[scheme] = {
+                "radius": radius, "max_abs_err": float(err.max()),
+                "bound_at_max": float(bound.max()),
+                "wire_bytes": col.last_op_info(g)["bytes"]}
+            ok[f"allreduce_{scheme}"] = bool((err <= bound).all())
+            ok[f"allreduce_{scheme}_record"] = (
+                col.last_op_info(g)["quant"] == scheme)
+        # Codes made on the card equal the CPU's, bit for bit.
+        head = rands[r][: 1 << 20].float()
+        for scheme in ("int8", "fp8"):
+            a, b = quant.encode(head, scheme), quant.encode(head.cpu(),
+                                                            scheme)
+            ok[f"codes_{scheme}_on_card"] = bool(
+                a.codes.is_cuda and torch.equal(a.codes.cpu(), b.codes)
+                and torch.equal(a.scales.cpu().view(torch.int32),
+                                b.scales.view(torch.int32)))
+        del rands, exact, out
+        # Alpha: one-element recursive-doubling allreduces (ceil(log2 n)
+        # rounds, one message each way a round).
+        one = torch.ones(1)
+        lat = []
+        for _ in range(COLLECTIVE_ALPHA_OPS):
+            t0 = _time.perf_counter()
+            col.allreduce(one, g, algo="rd")
+            lat.append(_time.perf_counter() - t0)
+        lat.sort()
+        rounds = (n - 1).bit_length()
+        seen_ok = all(info and info.get("tier") == "dcn"
+                      and info.get("op") == op for op, _, info in self.seen)
+        return {"rank": r, "times_s": times, "ok": ok,
+                "bytes_per_rank": numel * 2, "quant": quant_rec,
+                "alpha_us": lat[len(lat) // 2] / rounds * 1e6,
+                "rd_one_element_p50_us": lat[len(lat) // 2] * 1e6,
+                "observed_ops": ops, "observer_records_ok": seen_ok,
+                "observed": len(self.seen), "bytes_sent": self.group.bytes_sent}
+
+    @staticmethod
+    def _ring_sum(chunks, c, n):
+        acc = chunks[c][c].clone()
+        for k in range(1, n):
+            acc = chunks[(c + k) % n][c] + acc
+        return acc
+
+    def run_hier(self):
+        """A hierarchical allreduce of one card tensor per process: equal
+        to the flat sum of both processes' tensors."""
+        import torch
+
+        col = self.col
+        xs = [self._inputs(k, True, 1 << 20) for k in range(self.world)]
+        out = col.allreduce([xs[self.rank]], self.group_name)
+        flat = xs[0] + xs[1]
+        info = col.last_op_info(self.group_name)
+        return {"n_local": self.group.local.world_size,
+                "equal": bool(out[0].is_cuda and torch.equal(out[0], flat)),
+                "info": info}
+
+    def leave(self):
+        self.col.destroy_collective_group(self.group_name)
+        return True
+
+
+def _local_group_on_card() -> dict:
+    """The local group at world size 1 on the card: NCCL over one card;
+    every result stays on the card and equals what world size 1 gives."""
+    import torch
+
+    from ray_tpu_torch.util.collective.local_group import LocalGroup
+    from ray_tpu_torch.util.collective.types import ReduceOp
+
+    g = LocalGroup(device="cuda")
+    x = torch.arange(1 << 20, device="cuda", dtype=torch.float32)
+    out = {"world_size": g.world_size}
+    red = g.allreduce([x], ReduceOp.SUM)
+    out["allreduce"] = red[0].is_cuda and torch.equal(red[0], x)
+    out["record"] = dict(g.last_op_info)
+    out["max"] = torch.equal(g.allreduce([x], ReduceOp.MAX)[0], x)
+    gathered = g.allgather([x])
+    out["allgather"] = torch.equal(gathered[0][0], x)
+    out["broadcast"] = torch.equal(g.broadcast([x], 0)[0], x)
+    out["reducescatter"] = torch.equal(g.reducescatter([x])[0], x)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_collective(device_name):
+    import gc
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import collective as col
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    local = _local_group_on_card()
+    rt.init(num_cpus=4)
+    try:
+        Rank = rt.remote(num_gpus=1.0 / COLLECTIVE_RANKS)(_CollectiveRank)
+        ranks = [Rank.remote() for _ in range(COLLECTIVE_RANKS)]
+        t0 = time.perf_counter()
+        col.create_collective_group(ranks, COLLECTIVE_RANKS,
+                                    list(range(COLLECTIVE_RANKS)),
+                                    backend="dcn",
+                                    group_name=COLLECTIVE_GROUP)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dcn = rt.get([a.run_dcn.remote(COLLECTIVE_MIB) for a in ranks],
+                     timeout=900)
+        dcn_s = time.perf_counter() - t0
+        rt.get([a.leave.remote() for a in ranks], timeout=60)
+        for a in ranks:
+            rt.kill(a)
+        _wait_gpu(rt, 1.0, "the GPU was not back after the DCN ranks")
+        Hier = rt.remote(num_gpus=0.5)(_CollectiveRank)
+        hiers = [Hier.remote() for _ in range(2)]
+        col.create_collective_group(hiers, 2, [0, 1], backend="hier",
+                                    group_name="smoke_hier")
+        hier = rt.get([a.run_hier.remote() for a in hiers], timeout=300)
+        rt.get([a.leave.remote() for a in hiers], timeout=60)
+        for a in hiers:
+            rt.kill(a)
+    finally:
+        rt.shutdown()
+    left, _ = _stop_runtime()
+    n = COLLECTIVE_RANKS
+    nbytes = COLLECTIVE_MIB * 2 ** 20
+    slowest = {op: max(d["times_s"][op] for d in dcn)
+               for op in dcn[0]["times_s"]}
+    # Bus bandwidth as NCCL's tests define it: what each rank's link
+    # carries over the op's time (2(n-1)/n of the payload for an
+    # allreduce, (n-1)/n of the gathered bytes for a gather).
+    bus = {
+        "allreduce_ring": 2 * (n - 1) / n * nbytes / slowest["allreduce_ring"],
+        "allreduce_rd": nbytes * (n - 1).bit_length()
+        / slowest["allreduce_rd"],
+        "allgather": (n - 1) * nbytes / slowest["allgather"],
+        "reducescatter": (n - 1) / n * nbytes / slowest["reducescatter"],
+        "broadcast": nbytes / slowest["broadcast"],
+        "send_recv": nbytes / slowest["send_recv"],
+        "allreduce_int8": 2 * (n - 1) / n * nbytes / slowest["allreduce_int8"],
+        "allreduce_fp8": 2 * (n - 1) / n * nbytes / slowest["allreduce_fp8"],
+    }
+    alpha = sorted(d["alpha_us"] for d in dcn)
+    rec = {"phase": "collective", "card": device_name,
+           "ranks": n, "payload_mib_bf16_per_rank": COLLECTIVE_MIB,
+           "op_s_slowest_rank": slowest,
+           "bus_gb_s": {k: v / 1e9 for k, v in bus.items()},
+           "alpha_us_median_rank": alpha[len(alpha) // 2],
+           "alpha_us_by_rank": [d["alpha_us"] for d in dcn],
+           "quant": dcn[0]["quant"],
+           "checks_by_rank": [d["ok"] for d in dcn],
+           "observed_ops_rank0": dcn[0]["observed_ops"],
+           "group_setup_s": setup_s, "dcn_s": dcn_s,
+           "local_group": local, "hier": hier, "procs_left": left}
+    emit(rec)
+    print(json.dumps({"collective_numbers": {
+        "bus_gb_s": rec["bus_gb_s"], "alpha_us": rec["alpha_us_median_rank"],
+        "op_s": slowest}}), flush=True)
+    bad = [(d["rank"], k) for d in dcn for k, v in d["ok"].items() if not v]
+    check(not bad, f"DCN ops that disagree with the card's reference: {bad}")
+    want_ops = ["barrier", "allreduce", "barrier", "allreduce", "barrier",
+                "allgather", "barrier", "reducescatter", "barrier",
+                "broadcast", "barrier", "barrier", "barrier"]
+    for d in dcn:
+        got = d["observed_ops"]
+        sr = [op for op in got if op in ("send", "recv")]
+        check([op for op in got if op not in ("send", "recv")]
+              == want_ops and d["observer_records_ok"]
+              and len(sr) == (1 if d["rank"] in (0, 1) else 0),
+              f"rank {d['rank']}'s observer saw {got}")
+    check(local["world_size"] == 1 and all(
+        local[k] for k in ("allreduce", "max", "allgather", "broadcast",
+                           "reducescatter"))
+          and local["record"]["tier"] == "local"
+          and local["record"]["algo"] == "nccl",
+          f"the local group on the card: {local}")
+    check(all(h["equal"] and h["n_local"] == 1
+              and h["info"]["tier"] == "local+dcn" for h in hier),
+          f"the hierarchical allreduce: {hier}")
+    check(not left, f"processes after the phase: {left}")
+    return rec
+
+
+# -- data-parallel llama2-1b over DCN, with a severed peer ------------------
+DCN_WORKERS = 2
+DCN_ROWS = TRAIN_BATCH // DCN_WORKERS     # 4 x 1024 a rank
+DCN_STEPS, DCN_SAVE_AT, DCN_SEVER_AT = 5, 2, 3   # 1-based steps
+DCN_BF16_REL_L2 = 2e-2   # the reduced mean against one process's gradient
+DCN_F32_REL_L2 = 1e-5
+DCN_LOSS_RTOL = 1e-5
+
+
+def _rel_l2(got, want) -> float:
+    num = sum(float((a.float() - b.float()).pow(2).sum())
+              for a, b in zip(got, want))
+    den = sum(float(b.float().pow(2).sum()) for b in want)
+    return (num / den) ** 0.5
+
+
+def _dcn_narrow_check(rank, device) -> dict:
+    """A narrow f32 llama on the card: the mean of the ranks' reduced
+    gradients against one process's gradient over the whole batch."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+
+    cfg = dataclasses.replace(configs.llama2_1b, d_model=256, n_heads=2,
+                              n_kv_heads=2, d_ff=688, n_layers=2,
+                              vocab_size=4096, max_seq=256,
+                              dtype=torch.float32, remat=False)
+    params = init_params(cfg, seed=SEED + 3, device=device)
+    leaves = _flat_params(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 257), generator=gen,
+                           device=device)
+    rows = tokens[4 * rank:4 * rank + 4]
+    grads = torch.autograd.grad(loss_fn(params, rows, cfg), leaves)
+    reduced = train.allreduce_gradients(list(grads), "train_dp")
+    out = {"devices": sorted({str(t.device) for t in reduced})}
+    if rank == 0:
+        full = torch.autograd.grad(loss_fn(params, tokens, cfg), leaves)
+        out["rel_l2"] = _rel_l2(reduced, full)
+        out["max_abs_err"] = max(float((a - b).abs().max())
+                                 for a, b in zip(reduced, full))
+    return out
+
+
+def _train_dcn_loop(config):
+    """phase_train's model (llama2-1b, bf16, dots_nobatch, seed, AdamW) on
+    DCN_WORKERS ranks sharing the one card: each takes its 4 rows of one
+    8 x 1024 batch, every step; gradients cross "train_dp" through
+    allreduce_gradients(grads, "train_dp"). Checkpointed after step
+    DCN_SAVE_AT; at step DCN_SEVER_AT of gang epoch 0 rank 1 severs its
+    link to rank 0 before the allreduce. Every rank logs its losses and
+    what its collective ops did to a file."""
+    loop_start = time.time()
+    import dataclasses
+    import json
+    import os
+    import socket
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private import chaos
+    from ray_tpu_torch.exceptions import CollectiveTimeoutError
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.train import Checkpoint
+    from ray_tpu_torch.train.torch import get_device
+    from ray_tpu_torch.util import collective as col
+    from ray_tpu_torch.util.collective import collective as col_mod
+    from ray_tpu_torch.util.collective import dcn_group
+
+    device = get_device()
+    rank = train.get_world_rank()
+    group = col_mod._manager.get("train_dp")
+    epoch = group.epoch
+
+    def log(rec):
+        with open(os.path.join(config["dir"], f"rank{rank}.jsonl"), "a") as f:
+            f.write(json.dumps(dict(rec, epoch=epoch, rank=rank)) + "\n")
+
+    seen = []
+    col.add_op_observer(lambda op, s, info=None: seen.append(
+        (op, s, (info or {}).get("bytes", 0))))
+    info = {"pid": os.getpid(), "device": str(device),
+            "loop_start_wall": loop_start,
+            "device_name": torch.cuda.get_device_name(device),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "world": group.world_size, "epoch": epoch,
+            "op_timeout_s": group._op_timeout}
+    ckpt = train.get_checkpoint()
+    if ckpt is None:
+        info["narrow_f32"] = _dcn_narrow_check(rank, device)
+        torch.cuda.empty_cache()
+    else:
+        # The fence: an ident frame of the torn-down epoch is refused.
+        s = socket.create_connection(tuple(group.addr), timeout=5)
+        ident = dcn_group._IDENT.pack(1 - rank, epoch - 1, 0, 0)
+        s.sendall(dcn_group._LEN.pack(len(ident)) + ident)
+        s.settimeout(5)
+        try:
+            info["stale_ident_refused"] = s.recv(1) == b""
+        except OSError:
+            info["stale_ident_refused"] = True
+        s.close()
+    cfg = dataclasses.replace(configs.llama2_1b, max_seq=TRAIN_SEQ,
+                              remat=True, remat_policy="dots_nobatch")
+    counters = _train_launch_counters()
+    if ckpt is None:
+        params, start = init_params(cfg, seed=SEED, device=device), 0
+    else:
+        state = ckpt.to_pytree()
+        params, start = state["params"], state["step"]
+    leaves = _flat_params(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    if ckpt is not None:
+        opt.load_state_dict(state["opt"])
+        del state
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    batch = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                          generator=gen, device=device)
+    rows = batch[DCN_ROWS * rank:DCN_ROWS * (rank + 1)]
+    full = None
+    if ckpt is None and rank == 0:
+        # One process's gradient over the whole 8 x 1024 batch, from the
+        # initial weights, before the first step.
+        full = torch.autograd.grad(loss_fn(params, batch, cfg), leaves)
+        torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves)
+    tokens = DCN_ROWS * TRAIN_SEQ
+    prof = train.StepProfiler(flops_per_step=6.0 * n_params * tokens)
+    torch.cuda.reset_peak_memory_stats(device)
+    for i in range(start, DCN_STEPS):
+        step_no = i + 1
+        for fn in counters.values():
+            fn.launches = 0
+        first = len(seen)
+        ck, vs_full = None, None
+        t0 = time.perf_counter()
+        with prof.step(tokens=tokens) as s:
+            with prof.phase("compute"):
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(params, rows, cfg)
+                loss.backward()
+            s.fence(loss)
+            loss_v = loss.item()
+            log({"step": step_no, "loss": loss_v})
+            grads = [t.grad for t in leaves]
+            if step_no == DCN_SEVER_AT and epoch == 0:
+                if rank == 1:
+                    chaos.enable()
+                    chaos.sever_dcn_peer(0, "train_dp")
+                    log({"severed": 0})
+                t1 = time.perf_counter()
+                try:
+                    grads = train.allreduce_gradients(grads, "train_dp")
+                except CollectiveTimeoutError as e:
+                    log({"timeout_s": time.perf_counter() - t1,
+                         "peer": e.peer_rank, "error": str(e)[:300],
+                         "op_timeout_s": group._op_timeout})
+                    raise
+                raise RuntimeError("the allreduce after the sever completed")
+            grads = train.allreduce_gradients(grads, "train_dp")
+            with prof.phase("compute"):
+                for t, g in zip(leaves, grads):
+                    t.grad = g
+                opt.step()
+            s.fence(leaves[0])
+            step_s = time.perf_counter() - t0
+            launches = {n: fn.launches for n, fn in counters.items()}
+            if full is not None:
+                vs_full = {"rel_l2": _rel_l2(grads, full),
+                           "max_abs_err": max(
+                               float((a.float() - b.float()).abs().max())
+                               for a, b in zip(grads, full))}
+                full = None
+            if step_no == DCN_SAVE_AT and rank == 0:
+                with prof.phase("checkpoint"):
+                    ck = Checkpoint.from_pytree(
+                        {"params": params, "opt": opt.state_dict(),
+                         "step": step_no},
+                        os.path.join(train.get_trial_dir(),
+                                     f"step_{step_no}"))
+        rec = prof.records()[-1]
+        ops = seen[first:]
+        metrics = {"step": step_no, "loss": loss_v, "step_s": step_s,
+                   "launches": launches, "epoch": epoch,
+                   "first_of_attempt": i == start,
+                   "collective_s": rec.get("collective_s"),
+                   "observed_s": sum(o[1] for o in ops),
+                   "observed_ops": len(ops),
+                   "dcn_bytes": sum(o[2] for o in ops),
+                   "wall_s": rec.get("wall_s"),
+                   "peak_memory": torch.cuda.max_memory_allocated(device)}
+        if vs_full is not None:
+            metrics["vs_one_process"] = vs_full
+        if i == start:
+            metrics["info"] = info
+        log({"metrics": metrics})
+        train.report(metrics, checkpoint=ck)
+
+
+def phase_train_dcn(train_rec, device_name):
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     RunConfig, ScalingConfig, TorchConfig,
+                                     TorchTrainer)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="rt_train_dcn_")
+    rt.init(num_cpus=4)
+    try:
+        trainer = TorchTrainer(
+            _train_dcn_loop, train_loop_config={"dir": tmp},
+            backend_config=TorchConfig(backend="gloo", dp_sync="dcn"),
+            scaling_config=ScalingConfig(num_workers=DCN_WORKERS,
+                                         use_gpu=True,
+                                         gpus_per_worker=1.0 / DCN_WORKERS),
+            run_config=RunConfig(
+                name="llama2_1b_dcn", storage_path=tmp,
+                failure_config=FailureConfig(max_failures=1, backoff_s=0),
+                checkpoint_config=CheckpointConfig(num_to_keep=1)))
+        t0 = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - t0
+        _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after the fit")
+    finally:
+        rt.shutdown()
+    left, _ = _stop_runtime()
+    logs = {}
+    for r in range(DCN_WORKERS):
+        with open(os.path.join(tmp, f"rank{r}.jsonl")) as f:
+            logs[r] = [json.loads(ln) for ln in f]
+    shutil.rmtree(tmp, ignore_errors=True)
+    kernels = _kernels_at(DCN_ROWS * TRAIN_SEQ, 2048,
+                          (DCN_ROWS, TRAIN_SEQ, 16, 128))
+
+    check(result.error is None, f"the fit failed: {result.error}")
+    steps = {r: [m["metrics"] for m in logs[r] if "metrics" in m]
+             for r in logs}
+    losses = {r: [(m["epoch"], m["step"], m["loss"]) for m in logs[r]
+                  if "loss" in m] for r in logs}
+    timeouts = [m for m in logs[0] if "timeout_s" in m]
+    first = {r: steps[r][0]["info"] for r in steps}
+    restarted = {r: next(m["info"] for m in steps[r]
+                         if m["epoch"] == 1 and "info" in m) for r in steps}
+    predicted = _predicted_launches(train_rec["n_layers"])
+    bad = [(r, m["epoch"], m["step"], m["launches"]) for r in steps
+           for m in steps[r] if m["launches"] != predicted]
+    before = {s: l for e, s, l in losses[0] if e == 0}
+    after = {s: l for e, s, l in losses[0] if e == 1}
+    repeated = [{"step": s, "before_sever": before[s], "after_restart": l,
+                 "rel": abs(l - before[s]) / abs(before[s])}
+                for s, l in after.items() if s in before]
+    timed = [m for m in steps[0] if not m["first_of_attempt"]]
+    timed = timed or steps[0]
+
+    def med(key):
+        xs = sorted(m[key] for m in timed)
+        return xs[len(xs) // 2]
+
+    step_ms = med("step_s") * 1e3
+    coll_s = med("collective_s")
+    grad_bytes = 2 * train_rec["params"]
+    vs_full = next(m["vs_one_process"] for m in steps[0]
+                   if "vs_one_process" in m)
+    rec = {"phase": "train_dcn", "card": device_name, "model": "llama2-1b",
+           "dtype": "bfloat16", "workers": DCN_WORKERS,
+           "rows_per_rank": DCN_ROWS, "seq": TRAIN_SEQ,
+           "backend": "gloo process group + DCN group 'train_dp'",
+           "fit_s": fit_s, "step_ms_median": step_ms,
+           "phase_train_step_ms_median": train_rec["step_ms_median"],
+           "collective_s_median": coll_s,
+           "collective_share": coll_s / (step_ms / 1e3),
+           "dcn_bytes_per_step_rank0": med("dcn_bytes"),
+           "dcn_gb_s": med("dcn_bytes") / coll_s / 1e9,
+           "gradient_bytes": grad_bytes,
+           "gradient_bus_gb_s": grad_bytes / coll_s / 1e9,
+           "peak_memory_by_rank": {r: max(m["peak_memory"] for m in steps[r])
+                                   for r in steps},
+           "steps": {r: [(m["epoch"], m["step"]) for m in steps[r]]
+                     for r in steps},
+           "losses_rank0": losses[0], "losses_repeated": repeated,
+           "timeout": timeouts, "vs_one_process_bf16": vs_full,
+           "narrow_f32": first[0]["narrow_f32"],
+           "stale_ident_refused": restarted[0].get("stale_ident_refused"),
+           "epochs": [first[0]["epoch"], restarted[0]["epoch"]],
+           "launches_per_step": steps[0][0]["launches"],
+           "launches": {k: sum(m["launches"][k] for r in steps
+                               for m in steps[r]) for k in predicted},
+           "kernels_at_dp_shape": kernels, "procs_left": left}
+    emit(rec)
+    print(json.dumps({"train_dcn_numbers": {
+        k: rec[k] for k in ("step_ms_median", "collective_share",
+                            "dcn_gb_s", "gradient_bus_gb_s",
+                            "peak_memory_by_rank", "timeout")}}),
+          flush=True)
+    check(not bad, f"launches per step differ from {predicted}: {bad}")
+    check(all(m["collective_s"] > 0 and m["collective_s"]
+              == m["observed_s"] for r in steps for m in steps[r]),
+          "the flight recorder's collective share differs from the ops "
+          "the observer saw")
+    check(timeouts and timeouts[0]["timeout_s"] <= timeouts[0]["op_timeout_s"]
+          and timeouts[0]["peer"] == 1,
+          f"rank 0's op after the sever: {timeouts}")
+    check(rec["epochs"] == [0, 1], f"gang epochs {rec['epochs']}")
+    check(rec["stale_ident_refused"] is True,
+          "an ident frame of epoch 0 was not refused at epoch 1")
+    check(len(repeated) == 1 and repeated[0]["step"] == DCN_SEVER_AT
+          and all(v["rel"] <= DCN_LOSS_RTOL for v in repeated),
+          f"the repeated step's loss differs: {repeated}")
+    all_losses = [l for _, _, l in losses[0]]
+    check(all(np.isfinite(all_losses)), f"a loss is not finite: {losses}")
+    check(after[DCN_STEPS] < before[1],
+          f"the loss did not fall on the batch trained on: {losses[0]}")
+    check(vs_full["rel_l2"] <= DCN_BF16_REL_L2,
+          f"the reduced bf16 gradient against one process's: {vs_full}")
+    narrow = first[0]["narrow_f32"]
+    check(narrow["rel_l2"] <= DCN_F32_REL_L2
+          and narrow["devices"] == ["cuda:0"],
+          f"the narrow f32 reduced gradient: {narrow}")
+    check(not left, f"processes after the phase: {left}")
+    return rec
+
+
+# -- tensor-parallel serving ---------------------------------------------
+SERVE_TP_APP = "llm_tp"
+TP_NEW_TOKENS = 16
+
+
+def _llama_mesh_loader(seed: int):
+    """A loader that returns (params, cfg, mesh): llama3-8b at full width
+    and depth on a one-rank NCCL mesh it builds in the replica."""
+    def load():
+        import tempfile
+
+        import torch
+        import torch.distributed as dist
+
+        from ray_tpu_torch.models import configs, init_params
+        from ray_tpu_torch.models.transformer import param_logical_axes
+        from ray_tpu_torch.parallel import (MeshConfig, build_mesh,
+                                            shard_params)
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if not dist.is_initialized():
+            torch.cuda.set_device(0)
+            rdzv = tempfile.mkdtemp(prefix="rt_tp1_")
+            dist.init_process_group("nccl", init_method=f"file://{rdzv}/r",
+                                    rank=0, world_size=1)
+        mesh = build_mesh(MeshConfig(tp=1), "cuda")
+        cfg = configs.llama3_8b
+        params = shard_params(init_params(cfg, seed=seed, device="cuda"),
+                              param_logical_axes(cfg), mesh)
+        return params, cfg, mesh
+    return load
+
+
+def _tp_cfg():
+    """A narrow f32 model of llama3-8b's layout (GQA, 4 KV heads)."""
+    import torch
+
+    from ray_tpu_torch.models import configs
+
+    return dataclasses.replace(configs.llama3_8b, d_model=512, n_heads=8,
+                               n_kv_heads=4, d_ff=1536, n_layers=4,
+                               vocab_size=8192, max_seq=512,
+                               dtype=torch.float32)
+
+
+TP_ENGINE_KW = {"num_slots": 4, "max_len": 256, "prefill_chunk": 64,
+                "kv_mode": "paged", "page_size": 16}
+
+TP_RANK_MAIN = r"""
+import json, sys, time
+import torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[5])
+import chip_smoke as cs
+from ray_tpu_torch.models import init_params
+from ray_tpu_torch.models.transformer import param_logical_axes
+from ray_tpu_torch.parallel import MeshConfig, build_mesh, shard_params
+from ray_tpu_torch.serve.llm import ContinuousBatchingEngine
+
+rank, world, rdzv, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4]
+dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                        world_size=world)
+torch.cuda.set_device(0)
+# gloo on card tensors, for each op the engine uses.
+x = torch.full((4,), float(rank + 1), device="cuda")
+dist.all_reduce(x)
+b = torch.full((3,), float(rank), dtype=torch.float64, device="cuda")
+dist.broadcast(b, src=0)
+probe = {"all_reduce": x.tolist(), "broadcast": b.tolist(),
+         "device": str(x.device)}
+mesh = build_mesh(MeshConfig(tp=world), "cpu")
+cfg = cs._tp_cfg()
+params = shard_params(init_params(cfg, seed=cs.SEED, device="cuda"),
+                      param_logical_axes(cfg), mesh)
+eng = ContinuousBatchingEngine(params, cfg, mesh=mesh, **cs.TP_ENGINE_KW)
+rec = {"probe": probe, "kv_heads": int(eng._k.shape[3]),
+       "device": str(eng._k.device)}
+if rank == 0:
+    prompts = cs._tp_prompts(cfg)
+    t0 = time.perf_counter()
+    hs = [eng.submit(p, cs.TP_NEW_TOKENS) for p in prompts]
+    rec["tokens"] = [h.result(timeout=600) for h in hs]
+    rec["window_s"] = time.perf_counter() - t0
+    st = eng.stats()
+    eng.shutdown()
+    rec["step_ms"] = cs._step_ms(st)
+else:
+    assert eng.wait(900), "the follower never saw STOP"
+rec["forward_passes"] = eng._forward_passes
+with open(out, "w") as f:
+    json.dump(rec, f)
+dist.destroy_process_group()
+"""
+
+
+def _tp_prompts(cfg):
+    rng = np.random.default_rng(SEED + 9)
+    return [rng.integers(0, cfg.vocab_size, size=n).tolist()
+            for n in (5, 17, 64, 100, 130, 33)]
+
+
+def _step_ms(st) -> float:
+    t = st["timing"]
+    return ((t["dispatch_ms_total"] + t["fetch_ms_total"]
+             + t["host_ms_total"]) / max(1, t["steps_timed"]))
+
+
+def _serve_tp_narrow(tmp) -> dict:
+    """The narrow f32 model at tp=2: two processes on the one card over
+    gloo, against the mesh-less engine in this process."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.serve.llm import ContinuousBatchingEngine
+
+    cfg = _tp_cfg()
+    eng = ContinuousBatchingEngine(init_params(cfg, seed=SEED,
+                                               device="cuda"),
+                                   cfg, **TP_ENGINE_KW)
+    try:
+        t0 = time.perf_counter()
+        hs = [eng.submit(p, TP_NEW_TOKENS) for p in _tp_prompts(cfg)]
+        ref = [h.result(timeout=600) for h in hs]
+        ref_window = time.perf_counter() - t0
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    del eng
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "tp_rank.py")
+    with open(script, "w") as f:
+        f.write(TP_RANK_MAIN)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    procs = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, script, str(rank), "2",
+                 os.path.join(tmp, "rdzv"),
+                 os.path.join(tmp, f"rank{rank}.json"), here],
+                cwd=here, env=env, stdout=subprocess.DEVNULL, stderr=err))
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        with open(os.path.join(tmp, f"rank{rank}.err")) as f:
+            err = f.read()
+        check(p.returncode == 0, f"tp rank {rank} exited {p.returncode}: "
+              f"{err[-3000:]}")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    return {"ref_tokens": ref, "ref_window_s": ref_window,
+            "ref_step_ms": _step_ms(st), "ranks": ranks}
+
+
+def phase_serve_tp(slice_step_ms, device_name):
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import configs, init_params
+    from ray_tpu_torch.serve.llm import LLMReplica
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.llama3_8b
+    engine_kw = {"num_slots": 8, "max_len": 2048, "prefill_chunk": 64,
+                 "kv_mode": "paged", "page_size": 16}
+    new_tokens = 32
+    per_pass = 2 * cfg.n_layers + 1
+    rng = np.random.default_rng(SEED)
+    prompts, shared_a, shared_b = _shared_prompts(rng, cfg.vocab_size)
+    requests = prompts + [shared_a, shared_b]
+    # The mesh-less engine's greedy tokens on the ten requests.
+    params = init_params(cfg, seed=SEED, device="cuda")
+    rep = LLMReplica(lambda: (params, cfg), **engine_kw)
+    try:
+        hs = [rep.engine.submit(p, new_tokens) for p in requests]
+        ref = [h.result(timeout=600) for h in hs]
+        ref_st = rep.engine.stats()
+    finally:
+        rep.shutdown()
+    del params, rep, hs
+    gc.collect()
+    torch.cuda.empty_cache()
+    replica_cls = _serve_replica_cls()
+    rt.init(num_cpus=4)
+    try:
+        serve.start(port=0)
+        t0 = time.perf_counter()
+        h = serve.run(_serve_app(_llama_mesh_loader(SEED), replica_cls,
+                                 **engine_kw), name=SERVE_TP_APP)
+        info = h.options(method_name="info").remote().result(timeout=900)
+        ready_s = time.perf_counter() - t0
+        # The main path starts here: the replica's count at 0.
+        h.options(method_name="reset_counts").remote().result(timeout=120)
+        t0 = time.perf_counter()
+        resps = [h.remote(p, new_tokens) for p in requests]
+        outs = [r.result(timeout=600) for r in resps]
+        window_s = time.perf_counter() - t0
+        counts = h.options(method_name="counts").remote().result(timeout=120)
+        st = h.options(method_name="stats").remote().result(timeout=60)
+        serve.shutdown()
+        _wait_gpu(rt, 1.0, "the GPU was not back after serve.shutdown()")
+    finally:
+        rt.shutdown()
+    left, _ = _stop_runtime()
+    tmp = tempfile.mkdtemp(prefix="rt_serve_tp_")
+    try:
+        narrow = _serve_tp_narrow(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = narrow["ranks"]
+    rec = {"phase": "serve_tp", "card": device_name, "model": "llama3-8b",
+           "dtype": "bfloat16", "n_layers": cfg.n_layers,
+           "tp1": {"requests": len(outs), "ready_s": ready_s,
+                   "window_s": window_s,
+                   "equal_to_meshless": outs == ref,
+                   "finished": sum(len(o) == new_tokens for o in outs),
+                   "decode_step_ms": _step_ms(st),
+                   "meshless_step_ms": _step_ms(ref_st),
+                   "slice_phase_step_ms": slice_step_ms,
+                   "rmsnorm": counts, "device": info["device"]},
+           "tp2_narrow": {"gloo_probe": [r0["probe"], r1["probe"]],
+                          "kv_heads": [r0["kv_heads"], r1["kv_heads"]],
+                          "devices": [r0["device"], r1["device"]],
+                          "equal_to_tp1": r0["tokens"] == narrow[
+                              "ref_tokens"],
+                          "decode_step_ms": r0["step_ms"],
+                          "tp1_step_ms": narrow["ref_step_ms"],
+                          "window_s": r0["window_s"],
+                          "tp1_window_s": narrow["ref_window_s"],
+                          "forward_passes": [r0["forward_passes"],
+                                             r1["forward_passes"]]},
+           "procs_left": left}
+    emit(rec)
+    print(json.dumps({"serve_tp_numbers": {
+        "tp1_decode_step_ms": rec["tp1"]["decode_step_ms"],
+        "meshless_step_ms": rec["tp1"]["meshless_step_ms"],
+        "slice_phase_step_ms": slice_step_ms,
+        "tp2_narrow_step_ms": r0["step_ms"],
+        "tp1_narrow_step_ms": narrow["ref_step_ms"]}}), flush=True)
+    check(rec["tp1"]["finished"] == 10, f"tp=1: {rec['tp1']['finished']}/10")
+    check(outs == ref, "tp=1 tokens differ from the mesh-less engine's")
+    check(counts["forward_passes"] > 0 and counts["rmsnorm_launches"]
+          == per_pass * counts["forward_passes"],
+          f"rmsnorm launches in the tp=1 replica: {counts}")
+    check(info["device"] == device_name and info["n_layers"] == cfg.n_layers
+          and info["jax_or_ray_tpu_modules"] == [], f"the replica: {info}")
+    check(r0["probe"]["all_reduce"] == [3.0] * 4
+          and r1["probe"]["broadcast"] == [0.0] * 3
+          and r0["probe"]["device"] == "cuda:0",
+          f"gloo on card tensors: {rec['tp2_narrow']['gloo_probe']}")
+    check(rec["tp2_narrow"]["kv_heads"] == [2, 2]
+          and rec["tp2_narrow"]["devices"] == ["cuda:0", "cuda:0"],
+          f"the tp=2 KV pools: {rec['tp2_narrow']}")
+    check(rec["tp2_narrow"]["equal_to_tp1"],
+          f"tp=2 tokens {r0['tokens']} differ from tp=1's "
+          f"{narrow['ref_tokens']}")
+    check(r0["forward_passes"] == r1["forward_passes"] > 0,
+          f"the follower's passes {r1['forward_passes']} against the "
+          f"leader's {r0['forward_passes']}")
+    check(not left, f"processes after the phase: {left}")
+    return counts["rmsnorm_launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -5155,6 +6118,10 @@ def main() -> int:
     cli_launches = run(phase_cli, train, name)
     data_train_launches, data_infer_launches = run(phase_data, train, name)
     loadgen_launches, rest_job_launches = run(phase_loadgen, name)
+    run(phase_collective, name)
+    dcn = run(phase_train_dcn, train, name)
+    serve_tp_launches = run(phase_serve_tp, slice_rec["engine_step_ms"],
+                            name)
     emit({"phase": "timing", "seconds": seconds})
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "ray_tpu") or m.startswith(("jax.",
@@ -5181,8 +6148,11 @@ def main() -> int:
                              "data_infer": data_infer_launches["rmsnorm_fwd"],
                              "loadgen": loadgen_launches,
                              "dashboard_job": rest_job_launches,
-                             "moe_train": moe["launches"]["rmsnorm_fwd"]},
+                             "moe_train": moe["launches"]["rmsnorm_fwd"],
+                             "train_dcn": dcn["launches"]["rmsnorm_fwd"],
+                             "serve_tp": serve_tp_launches},
         "max_abs_err": max(max_abs, moe["kernels"]["rmsnorm_fwd"][
+            "max_abs_err"], dcn["kernels_at_dp_shape"]["rmsnorm_fwd"][
             "max_abs_err"]),
         "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -5208,9 +6178,12 @@ def main() -> int:
                                  "tune_b": tune_b_launches[kname],
                                  "cli": cli_launches[kname],
                                  "data_train": data_train_launches[kname],
-                                 "moe_train": moe["launches"][kname]},
+                                 "moe_train": moe["launches"][kname],
+                                 "train_dcn": dcn["launches"][kname]},
             "max_abs_err": max(train_err[kname],
-                               moe["kernels"][kname]["max_abs_err"]),
+                               moe["kernels"][kname]["max_abs_err"],
+                               dcn["kernels_at_dp_shape"][kname][
+                                   "max_abs_err"]),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library"]["ms"],
@@ -5223,6 +6196,7 @@ def main() -> int:
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())
         r["at_moe_train_shape"] = moe["kernels"][r["name"]]
+        r["at_train_dcn_shape"] = dcn["kernels_at_dp_shape"][r["name"]]
     missing = [r["name"] for r in records
                if 0 in r["launches_by_path"].values()]
     check(not missing, f"kernels never launched on a path: {missing}")

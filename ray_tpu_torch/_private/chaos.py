@@ -63,7 +63,6 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional, Set
 
-from ray_tpu_torch._private.not_ported import not_ported
 from ray_tpu_torch.util import journal
 
 logger = logging.getLogger("ray_tpu_torch.chaos")
@@ -200,7 +199,16 @@ def sever_dcn_peer(peer_rank: int, group_name: str = "default"):
     analog of a host vanishing: the peer's next op on the link raises
     (closed) and ours times out instead of hanging."""
     _require_enabled("sever_dcn_peer")
-    raise not_ported("the collective faults of chaos", "A5")
+    from ray_tpu_torch.util.collective.collective import _manager
+
+    group = _manager.get(group_name)
+    for table in (group._accepted, group._outgoing):
+        peer = table.pop(peer_rank, None)
+        if peer is not None:
+            try:
+                peer.sock.close()
+            except OSError:
+                pass
 
 
 # -- driver-side faults --------------------------------------------------

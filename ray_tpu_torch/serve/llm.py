@@ -29,7 +29,20 @@ How the port differs from the JAX engine:
     journal and postmortem calls are the JAX engine's. `stats()`'s
     TTFT/TPOT summaries come from the engine's own samples (`_Latency`,
     with p50 and p99), not from the process-wide histograms.
-  * The tensor-parallel `mesh` waits for ROADMAP A5.
+  * Tensor parallelism. The JAX engine is one controller over a mesh
+    and GSPMD inserts the collectives. The port's mesh is one process per
+    rank (parallel/mesh.py), so every tp rank builds the engine on its
+    shards (heads, MLP and vocabulary split over "tp", the KV pool
+    holding the rank's KV heads) and runs each device step in lockstep:
+    rank 0 owns the scheduler, the handles and the streams, and before
+    each device call it broadcasts one fixed-size plan over the tp group
+    (the call's kind, its slots, tokens, offsets and sampling parameters,
+    or the host arrays it uploads); the followers make the same call on
+    their shards. Partial products, the embedding and the logits are
+    summed over tp, so every rank picks the same tokens from the same
+    logits and keeps its next inputs on its own device.
+    `LLMReplica` starts the followers itself, one per further card the
+    raylet granted it, and stops them with it.
 
 The engine runs on the device that holds the parameters.
 """
@@ -62,6 +75,8 @@ from ray_tpu_torch.models.transformer import (
 )
 from ray_tpu_torch.ops import apply_rope, rmsnorm
 from ray_tpu_torch.ops.rope import rope_tables
+from ray_tpu_torch.parallel._comm import sum_over
+from ray_tpu_torch.parallel.mesh import axis_index, axis_size
 from ray_tpu_torch.serve import context as request_context
 from ray_tpu_torch.serve import observatory, paged_kv
 
@@ -173,11 +188,13 @@ def _engine_metrics() -> Dict:
 
 
 def init_slotted_cache(cfg: TransformerConfig, slots: int, max_len: int,
-                       device=None) -> Dict:
+                       device=None, mesh=None) -> Dict:
     """[layers, slots, max_len, kv_heads, head_dim] cache with PER-SLOT
-    lengths, so sequences of different ages share one decode batch."""
+    lengths, so sequences of different ages share one decode batch. Under
+    a mesh it holds this rank's KV heads (split over "tp")."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, slots, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, slots, max_len,
+             cfg.n_kv_heads // axis_size(mesh, "tp"), cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -199,19 +216,55 @@ def _grouped_attention(q, kf, vf, valid):
     return out.to(q.dtype)
 
 
+def _embed(params, tokens, cfg: TransformerConfig, mesh=None):
+    """The embedding rows of `tokens`. Under tp each rank holds a block of
+    the vocabulary: it contributes the rows it holds and zeros elsewhere,
+    and the sum over tp is every row exactly."""
+    if axis_size(mesh, "tp") == 1:
+        return _embed_tokens(params, tokens, cfg)
+    table = params["embed"]
+    rows = table.shape[0]
+    local = tokens - axis_index(mesh, "tp") * rows
+    hit = (local >= 0) & (local < rows)
+    x = torch.where(hit[..., None], table[local.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=table.dtype, device=table.device))
+    x = sum_over(x, mesh, ("tp",)).to(cfg.dtype)
+    if cfg.scale_embeddings:  # as _embed_tokens scales
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
+                             device=x.device)
+    return x
+
+
+def _logits(x, params, cfg: TransformerConfig, mesh=None):
+    """Logits over the whole vocabulary on every rank: under tp each rank
+    projects onto its vocabulary block and the blocks are summed into
+    place."""
+    local = project_logits(x, params, cfg)
+    tp = axis_size(mesh, "tp")
+    if tp == 1:
+        return local
+    v = local.shape[-1]
+    r = axis_index(mesh, "tp")
+    full = local.new_zeros(local.shape[:-1] + (v * tp,))
+    full[..., r * v:(r + 1) * v] = local
+    return sum_over(full, mesh, ("tp",))
+
+
 def _layer_body(x, lp, k_cache_l, v_cache_l, cfg, cos, sin, positions,
-                write_kv, valid):
+                write_kv, valid, mesh=None):
     """One transformer layer shared by decode and prefill, both KV modes.
 
     The callers differ only in how K/V land in the cache and what the
     attention source is: `write_kv(kc, vc, k, v) -> (k_att, v_att)`
     writes the layer's cache in place and returns what to attend against;
-    `valid` is the caller's mask over (B, Lq, Lk_att). Returns x."""
+    `valid` is the caller's mask over (B, Lq, Lk_att). Under a mesh the
+    layer computes this rank's heads and MLP columns and sums the output
+    projections over tp. Returns x."""
     b, l = x.shape[:2]
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(b, l, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+    q = (h @ lp["wq"]).reshape(b, l, -1, cfg.head_dim)
+    k = (h @ lp["wk"]).reshape(b, l, -1, cfg.head_dim)
+    v = (h @ lp["wv"]).reshape(b, l, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, lp["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, lp["k_norm"], cfg.norm_eps)
@@ -219,11 +272,13 @@ def _layer_body(x, lp, k_cache_l, v_cache_l, cfg, cos, sin, positions,
     k = apply_rope(k, cos, sin, positions)
     k_att, v_att = write_kv(k_cache_l, v_cache_l, k, v)
     attn = _grouped_attention(q, k_att.float(), v_att.float(), valid)
-    x = x + (attn.reshape(b, l, -1) @ lp["wo"]).to(x.dtype)
+    x = x + sum_over(attn.reshape(b, l, -1) @ lp["wo"], mesh,
+                     ("tp",)).to(x.dtype)
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     gate = _act(cfg)((h @ lp["w_gate"]).float())
     up = (h @ lp["w_up"]).float()
-    return x + ((gate * up).to(x.dtype) @ lp["w_down"])
+    return x + sum_over((gate * up).to(x.dtype) @ lp["w_down"], mesh,
+                        ("tp",))
 
 
 MAX_TOP_K = 64  # per-slot top-k cap
@@ -255,18 +310,20 @@ def _pick_tokens(logits, temps, top_ks, top_ps, gen: torch.Generator):
 
 @torch.inference_mode()
 def _decode_slots(params, tokens, k_cache, v_cache, lengths, active,
-                  temps, top_ks, top_ps, gen, cfg: TransformerConfig):
+                  temps, top_ks, top_ps, gen, cfg: TransformerConfig,
+                  mesh=None):
     """One decode step for every slot at once.
 
     tokens [S] (last emitted per slot), lengths [S] (valid cache rows per
     slot), active [S] bool. Writes each ACTIVE slot's K/V at its own
     position in place; inactive slots write into their last row (masked
     out forever) and keep their length. Returns (next_tokens [S],
-    new_lengths [S]); temps=None picks greedily."""
+    new_lengths [S]); temps=None picks greedily. Under a mesh, the caches
+    hold this rank's KV heads and `params` its shards."""
     s_ = tokens.shape[0]
     lmax = k_cache.shape[2]
     dev = tokens.device
-    x = _embed_tokens(params, tokens[:, None], cfg)  # [S, 1, d]
+    x = _embed(params, tokens[:, None], cfg, mesh)  # [S, 1, d]
     cos, sin = rope_tables(cfg.head_dim, lmax, cfg.rope_theta, dev)
     positions = lengths[:, None]
     write_at = torch.where(active, lengths.clamp(max=lmax - 1), lmax - 1)
@@ -281,9 +338,9 @@ def _decode_slots(params, tokens, k_cache, v_cache, lengths, active,
 
     for i, lp in enumerate(layer_params(params)):
         x = _layer_body(x, lp, k_cache[i], v_cache[i], cfg, cos, sin,
-                        positions, write_kv, valid)
+                        positions, write_kv, valid, mesh)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = project_logits(x[:, -1], params, cfg)
+    logits = _logits(x[:, -1], params, cfg, mesh)
     new_lengths = torch.where(active, lengths + 1, lengths)
     if temps is None:
         next_tokens = torch.argmax(logits, dim=-1)
@@ -294,7 +351,8 @@ def _decode_slots(params, tokens, k_cache, v_cache, lengths, active,
 
 @torch.inference_mode()
 def _prefill_chunk(params, tokens, n_valid: int, slot: int, offset: int,
-                   k_cache, v_cache, lengths, cfg: TransformerConfig):
+                   k_cache, v_cache, lengths, cfg: TransformerConfig,
+                   mesh=None):
     """CHUNKED prefill: one fixed-size chunk of a prompt into slot `slot`
     at row `offset`. tokens [1, C] (first n_valid real); writes K/V rows
     [slot, offset:offset+C] in place, dropping rows past the cache end
@@ -304,7 +362,7 @@ def _prefill_chunk(params, tokens, n_valid: int, slot: int, offset: int,
     _, c = tokens.shape
     lmax = k_cache.shape[2]
     dev = tokens.device
-    x = _embed_tokens(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, mesh)
     cos, sin = rope_tables(cfg.head_dim, lmax, cfg.rope_theta, dev)
     positions = offset + torch.arange(c, device=dev)[None, :]
     k_pos = torch.arange(lmax, device=dev)[None, None, :]
@@ -318,13 +376,21 @@ def _prefill_chunk(params, tokens, n_valid: int, slot: int, offset: int,
 
     for i, lp in enumerate(layer_params(params)):
         x = _layer_body(x, lp, k_cache[i], v_cache[i], cfg, cos, sin,
-                        positions, write_kv, valid)
+                        positions, write_kv, valid, mesh)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = project_logits(x[:, n_valid - 1], params, cfg)
+    logits = _logits(x[:, n_valid - 1], params, cfg, mesh)
     # fill_ runs on the device; `lengths[slot] = n` would copy a host
     # scalar and wait for every step already enqueued.
     lengths[slot].fill_(offset + n_valid)
     return logits
+
+
+# The kinds of device call a tp leader broadcasts to its followers; a plan
+# is one float64 tensor: [kind, a0..a6, payload...] (float64 carries the
+# token ids, page ids and f32 sampling parameters exactly).
+_PLAN_STOP, _PLAN_DECODE, _PLAN_PREFILL, _PLAN_SAMPLING, _PLAN_TABLE, \
+    _PLAN_COW, _PLAN_RESET = range(7)
+_PLAN_HEAD = 8
 
 
 class _Latency:
@@ -508,8 +574,13 @@ class ContinuousBatchingEngine:
                  default_max_new_tokens: int = 32, seed: int = 0,
                  prefill_chunk: int = 64, kv_mode: Optional[str] = None,
                  page_size: Optional[int] = None,
-                 kv_pages: Optional[int] = None):
-        """prefill_chunk: prompts prefill in fixed chunks of this many
+                 kv_pages: Optional[int] = None, mesh=None):
+        """mesh: a DeviceMesh with a "tp" axis for tensor-parallel serving
+        (parallel.build_mesh; params already this rank's shards, by
+        parallel.shard_params). Every tp rank builds the engine; rank 0
+        serves and the others follow it step by step (module docstring).
+
+        prefill_chunk: prompts prefill in fixed chunks of this many
         tokens, ONE chunk per mid-prefill slot between decode steps.
 
         kv_mode / page_size / kv_pages: the KV memory plane. "paged"
@@ -521,6 +592,22 @@ class ContinuousBatchingEngine:
         self.params = params
         self.cfg = cfg
         self.device = params["embed"].device
+        self.mesh = mesh
+        if mesh is not None:
+            if "tp" not in (mesh.mesh_dim_names or ()):
+                raise ValueError(
+                    "the engine's mesh needs a \"tp\" axis (KV heads "
+                    f"shard over it); got axes {mesh.mesh_dim_names}"
+                )
+            if cfg.n_kv_heads % axis_size(mesh, "tp"):
+                raise ValueError(
+                    f"the mesh's tp={axis_size(mesh, 'tp')} must divide "
+                    f"n_kv_heads={cfg.n_kv_heads}"
+                )
+        self._tp = axis_size(mesh, "tp")
+        self.tp_rank = axis_index(mesh, "tp")
+        # Plans flow only once both sides have warmed up alike.
+        self._mirror = False
         self.num_slots = num_slots
         self.max_len = max_len
         self.eos_id = eos_id
@@ -617,14 +704,127 @@ class ContinuousBatchingEngine:
         self._hol_blocked_s = 0.0
         self._last_prefill_work: list = []
         self._fetch = _StepFetch(num_slots, self.device)
+        if self._tp > 1:
+            import torch.distributed as dist
+
+            self._tp_group = mesh.get_group("tp")
+            self._tp_root = dist.get_global_rank(self._tp_group, 0)
+            width = max(4 * num_slots, self.prefill_chunk, 2)
+            if self._paged:
+                width = max(width, num_slots * self._pages_per_slot)
+            self._plan_len = _PLAN_HEAD + width
         self._warmup()
         self._stop_evt = threading.Event()
+        self._mirror = self._tp > 1
         self._thread = threading.Thread(
-            target=self._loop, name="llm-engine", daemon=True
+            target=self._follow if self.tp_rank else self._loop,
+            name="llm-engine", daemon=True
         )
         self._thread.start()
 
+    # -- tensor-parallel plans -------------------------------------------
+    def _plan(self, kind: int, *args, payload=None):
+        """Rank 0 of a tp group: broadcast the device call about to run.
+        A no-op without followers, and while the engine warms up (every
+        rank warms up alike)."""
+        if not self._mirror or self.tp_rank:
+            return
+        import torch.distributed as dist
+
+        plan = np.zeros(self._plan_len, dtype=np.float64)
+        plan[0] = kind
+        plan[1:1 + len(args)] = args
+        if payload is not None:
+            flat = np.asarray(payload, dtype=np.float64).reshape(-1)
+            plan[_PLAN_HEAD:_PLAN_HEAD + flat.size] = flat
+        t = torch.from_numpy(plan).to(self.device)
+        dist.broadcast(t, src=self._tp_root, group=self._tp_group)
+
+    def _follow(self):
+        """A follower rank's loop: take each plan rank 0 broadcasts and
+        make the same device call on this rank's shards, until STOP."""
+        import torch.distributed as dist
+
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        s_ = self.num_slots
+        buf = torch.empty(self._plan_len, dtype=torch.float64,
+                          device=self.device)
+        with torch.inference_mode():
+            while True:
+                dist.broadcast(buf, src=self._tp_root, group=self._tp_group)
+                plan = buf.cpu().numpy()
+                kind, a = int(plan[0]), plan[1:_PLAN_HEAD]
+                body = plan[_PLAN_HEAD:]
+                if kind == _PLAN_STOP:
+                    return
+                if kind == _PLAN_DECODE:
+                    self._decode_step(bool(a[0]))
+                elif kind == _PLAN_PREFILL:
+                    c = self.prefill_chunk
+                    pick = (None if not a[3] else
+                            (float(np.float32(a[4])), int(a[5]),
+                             float(np.float32(a[6]))))
+                    self._prefill_step(body[:c].astype(np.int64)[None],
+                                       int(a[2]), int(a[0]), int(a[1]), pick)
+                elif kind == _PLAN_SAMPLING:
+                    self._temps[:] = body[:s_]
+                    self._top_ks[:] = body[s_:2 * s_]
+                    self._top_ps[:] = body[2 * s_:3 * s_]
+                    self._active[:] = body[3 * s_:4 * s_] != 0
+                    self._upload_sampling_state()
+                elif kind == _PLAN_TABLE:
+                    self._bt_host[:] = body[:self._bt_host.size].reshape(
+                        self._bt_host.shape)
+                    self._upload_block_table()
+                elif kind == _PLAN_COW:
+                    paged_kv.cow_copy_page(self._k, self._v, int(a[0]),
+                                           int(a[1]))
+                elif kind == _PLAN_RESET:
+                    self._reset_device_state()
+
     # -- device steps (loop thread, and _warmup before it starts) --------
+    def _decode_step(self, sampled: bool):
+        """One decode dispatch: its picks become the next inputs."""
+        self._plan(_PLAN_DECODE, int(sampled))
+        next_dev, self._lengths = self._decode(sampled=sampled)
+        self._forward_passes += 1
+        self._tokens_dev = next_dev
+        return next_dev
+
+    def _prefill_step(self, padded: np.ndarray, n: int, slot: int, off: int,
+                      pick):
+        """One prefill chunk of `slot`; on the prompt's last chunk `pick`
+        is (temperature, top_k, top_p) and the first token is picked on
+        the device, fed to the decode loop, and returned."""
+        if pick is None:
+            self._plan(_PLAN_PREFILL, slot, off, n, 0, payload=padded)
+        else:
+            self._plan(_PLAN_PREFILL, slot, off, n, 1, *pick,
+                       payload=padded)
+        logits = self._prefill(self._h2d(padded), n, slot, off)
+        self._forward_passes += 1
+        self._prefill_chunks += 1
+        if pick is None:
+            return None
+        temperature, top_k, top_p = pick
+        if temperature > 0:
+            dev = self.device
+            tok_dev = _pick_tokens(
+                logits,
+                torch.full((1,), temperature, device=dev),
+                torch.full((1,), top_k, dtype=torch.int64, device=dev),
+                torch.full((1,), top_p, device=dev),
+                self._rng,
+            )
+        else:
+            tok_dev = torch.argmax(logits, dim=-1)
+        # Feed the decode loop device-side, into a new tensor as JAX's
+        # `.at[].set` makes one (the old one may still be read).
+        self._tokens_dev = self._tokens_dev.clone()
+        self._tokens_dev[slot] = tok_dev[0]
+        return tok_dev
+
     def _decode(self, sampled: bool):
         gen = self._rng if sampled else None
         temps, top_ks, top_ps = ((self._temps_dev, self._top_ks_dev,
@@ -634,11 +834,12 @@ class ContinuousBatchingEngine:
             return paged_kv.decode_paged(
                 self.params, self._tokens_dev, self._k, self._v,
                 self._lengths, self._active_dev, self._bt_dev, temps,
-                top_ks, top_ps, gen, self.cfg, self.max_len,
+                top_ks, top_ps, gen, self.cfg, self.max_len, self.mesh,
             )
         return _decode_slots(
             self.params, self._tokens_dev, self._k, self._v, self._lengths,
             self._active_dev, temps, top_ks, top_ps, gen, self.cfg,
+            self.mesh,
         )
 
     def _prefill(self, tokens, n: int, slot: int, off: int):
@@ -646,10 +847,11 @@ class ContinuousBatchingEngine:
             return paged_kv.prefill_chunk_paged(
                 self.params, tokens, n, slot, off, self._k, self._v,
                 self._lengths, self._bt_dev, self.cfg, self.max_len,
+                self.mesh,
             )
         return _prefill_chunk(
             self.params, tokens, n, slot, off, self._k, self._v,
-            self._lengths, self.cfg,
+            self._lengths, self.cfg, self.mesh,
         )
 
     def _warmup(self):
@@ -673,6 +875,8 @@ class ContinuousBatchingEngine:
     def _upload_sampling_state(self):
         """ONE host->device refresh of sampling params + active mask,
         only when slot membership changed."""
+        self._plan(_PLAN_SAMPLING, payload=np.concatenate([
+            self._temps, self._top_ks, self._top_ps, self._active]))
         self._temps_dev = self._h2d(self._temps)
         self._top_ks_dev = self._h2d(self._top_ks)
         self._top_ps_dev = self._h2d(self._top_ps)
@@ -684,6 +888,7 @@ class ContinuousBatchingEngine:
     def _upload_block_table(self):
         """ONE host->device refresh of the block table, only when slot
         membership changed (admission reserves every page up front)."""
+        self._plan(_PLAN_TABLE, payload=self._bt_host)
         self._bt_dev = self._h2d(self._bt_host)
         self._bt_dirty = False
         self._bt_uploads += 1
@@ -725,10 +930,10 @@ class ContinuousBatchingEngine:
         if self._paged:
             return paged_kv.init_paged_cache(
                 self.cfg, self.num_slots, self.kv_pages, self.page_size,
-                self._pages_per_slot, device=self.device,
+                self._pages_per_slot, device=self.device, mesh=self.mesh,
             )
         return init_slotted_cache(self.cfg, self.num_slots, self.max_len,
-                                  device=self.device)
+                                  device=self.device, mesh=self.mesh)
 
     # -- public API ------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
@@ -737,6 +942,10 @@ class ContinuousBatchingEngine:
         """temperature=0 decodes greedily (the default); >0 samples,
         optionally filtered by per-request top_k (<= MAX_TOP_K) and
         top_p — mixed greedy/sampled requests share one decode batch."""
+        if self.tp_rank:
+            raise RuntimeError(
+                f"tp rank {self.tp_rank} follows rank 0's engine; submit "
+                f"requests to rank 0")
         if top_k is not None and not 0 < top_k <= MAX_TOP_K:
             raise ValueError(f"top_k must be in (0, {MAX_TOP_K}]")
         if top_p is not None and not 0.0 < top_p <= 1.0:
@@ -892,6 +1101,12 @@ class ContinuousBatchingEngine:
                     "events": list(self._hol_events),
                 },
             }
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the engine's loop ends (a follower's ends when rank
+        0's engine stops); True when it has."""
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
 
     def shutdown(self):
         self._stop_evt.set()
@@ -1063,6 +1278,7 @@ class ContinuousBatchingEngine:
             except paged_kv.OutOfPages:
                 self._pool.release(pages)
                 return None
+            self._plan(_PLAN_COW, pages[fw], fork)
             paged_kv.cow_copy_page(self._k, self._v, pages[fw], fork)
             self._pool.release([pages[fw]])
             pages[fw] = fork
@@ -1132,29 +1348,14 @@ class ContinuousBatchingEngine:
             n = len(chunk)
             padded = np.zeros((1, c), dtype=np.int64)
             padded[0, :n] = chunk
-            logits = self._prefill(self._h2d(padded), n, slot, off)
-            self._forward_passes += 1
-            self._prefill_chunks += 1
             entry["offset"] = off + n
-            if entry["offset"] < len(h.prompt):
-                continue
-            # Final chunk: first token under the request's sampling.
-            if h.temperature > 0:
-                dev = self.device
-                tok_dev = _pick_tokens(
-                    logits,
-                    torch.full((1,), h.temperature, device=dev),
-                    torch.full((1,), h.top_k, dtype=torch.int64, device=dev),
-                    torch.full((1,), h.top_p, device=dev),
-                    self._rng,
-                )
-            else:
-                tok_dev = torch.argmax(logits, dim=-1)
-            # Feed the decode loop device-side, into a new tensor as JAX's
-            # `.at[].set` makes one (the old one may still be read).
-            self._tokens_dev = self._tokens_dev.clone()
-            self._tokens_dev[slot] = tok_dev[0]
-            finished.append((slot, h, tok_dev, entry))
+            # The last chunk picks the first token under the request's
+            # sampling.
+            pick = (None if entry["offset"] < len(h.prompt)
+                    else (h.temperature, h.top_k, h.top_p))
+            tok_dev = self._prefill_step(padded, n, slot, off, pick)
+            if tok_dev is not None:
+                finished.append((slot, h, tok_dev, entry))
         if not finished:
             return
         toks = torch.cat([t for _, _, t, _ in finished]).tolist()
@@ -1217,6 +1418,16 @@ class ContinuousBatchingEngine:
             "hol_blocking", prefill_s=round(prefill_s, 4),
             victims=n_active)
 
+    def _reset_device_state(self):
+        """A fresh cache and zero next inputs (after a failed step)."""
+        cache = self._fresh_cache()
+        self._k, self._v = cache["k"], cache["v"]
+        self._lengths = cache["lengths"]
+        if self._paged:
+            self._bt_dev = cache["block_tables"]
+        self._tokens_dev = torch.zeros(self.num_slots, dtype=torch.int64,
+                                       device=self.device)
+
     def _loop(self):
         """Pipelined decode loop: dispatch step k+1 (inputs from step k's
         on-device pick), start the non-blocking copy of its outputs, then
@@ -1226,7 +1437,10 @@ class ContinuousBatchingEngine:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         with torch.inference_mode():
-            self._run_loop()
+            try:
+                self._run_loop()
+            finally:
+                self._plan(_PLAN_STOP)  # the followers' loops end too
 
     def _run_loop(self):
         inflight = None  # (snapshot [(slot, gen, handle)], pending fetch)
@@ -1255,10 +1469,7 @@ class ContinuousBatchingEngine:
                     if self._paged and self._bt_dirty:
                         self._upload_block_table()
                     t0 = time.perf_counter()
-                    next_dev, self._lengths = self._decode(
-                        sampled=self._sampled_active)
-                    self._forward_passes += 1
-                    self._tokens_dev = next_dev
+                    next_dev = self._decode_step(self._sampled_active)
                     # Start the D2H copy NOW: it lands while this thread
                     # hands out the previous step's tokens.
                     pending = self._fetch.start(next_dev, self._lengths)
@@ -1348,12 +1559,10 @@ class ContinuousBatchingEngine:
                     self._free = deque(range(self.num_slots))
                     # A failed step may have left the cache half written:
                     # rebuild it before serving again.
-                    cache = self._fresh_cache()
-                    self._k, self._v = cache["k"], cache["v"]
-                    self._lengths = cache["lengths"]
+                    self._plan(_PLAN_RESET)
+                    self._reset_device_state()
                     if self._paged:
                         # Every page reference pointed into the dead cache.
-                        self._bt_dev = cache["block_tables"]
                         self._pool.reset()
                         if self._prefix_cache is not None:
                             self._prefix_cache.reset()
@@ -1361,9 +1570,6 @@ class ContinuousBatchingEngine:
                         self._chaos_held = []
                         self._bt_host[:] = 0
                         self._bt_dirty = False
-                    self._tokens_dev = torch.zeros(
-                        self.num_slots, dtype=torch.int64, device=self.device
-                    )
                     self._gen += 1  # orphan any in-flight snapshot
                     self._active[:] = False
                     self._temps[:] = 0.0
@@ -1378,9 +1584,17 @@ class LLMReplica:
     """Replica class wrapping the engine: blocking generate, token
     streaming (rides the replica generator protocol -> SSE at the
     proxy), and engine stats. `model_loader()` runs in the replica and
-    returns (params, cfg); the engine runs on the device that holds the
-    params, so a loader that builds them on `cuda` makes the CUDA context
-    in the replica process."""
+    returns (params, cfg), or (params, cfg, mesh) for tensor-parallel
+    serving; the engine runs on the device that holds the params, so a
+    loader that builds them on `cuda` makes the CUDA context in the
+    replica process.
+
+    A replica granted more than one card (ray_actor_options num_gpus=tp)
+    serves with tp ranks: it starts a follower process on each further
+    card (serve/tp.py), joins them in a process group, and then every
+    rank runs the loader, which builds the mesh (parallel.build_mesh)
+    and returns the rank's shards. A loader that wants a one-rank mesh
+    on one card starts its own one-rank group."""
 
     def __init__(self, model_loader, num_slots: int = 4, max_len: int = 256,
                  eos_id: Optional[int] = None,
@@ -1388,18 +1602,37 @@ class LLMReplica:
                  prefill_chunk: int = 64, kv_mode: Optional[str] = None,
                  page_size: Optional[int] = None,
                  kv_pages: Optional[int] = None):
-        loaded = model_loader()
-        if len(loaded) != 2:
-            raise ValueError(
-                "model_loader must return (params, cfg); tensor-parallel "
-                "serving (a mesh) is not ported yet")
-        params, cfg = loaded
-        self.engine = ContinuousBatchingEngine(
-            params, cfg, num_slots=num_slots, max_len=max_len,
-            eos_id=eos_id, default_max_new_tokens=default_max_new_tokens,
-            prefill_chunk=prefill_chunk, kv_mode=kv_mode,
-            page_size=page_size, kv_pages=kv_pages,
-        )
+        from ray_tpu_torch.serve import tp
+
+        engine_kw = dict(num_slots=num_slots, max_len=max_len,
+                         eos_id=eos_id,
+                         default_max_new_tokens=default_max_new_tokens,
+                         prefill_chunk=prefill_chunk, kv_mode=kv_mode,
+                         page_size=page_size, kv_pages=kv_pages)
+        self._followers = tp.start_followers(model_loader, engine_kw)
+        try:
+            # (params, cfg) or (params, cfg, mesh) — a mesh cannot cross
+            # the actor boundary, so tensor-parallel serving builds it
+            # (and shards params) inside the loader, in every rank.
+            loaded = model_loader()
+            mesh = None
+            if len(loaded) == 3:
+                params, cfg, mesh = loaded
+            else:
+                params, cfg = loaded
+            tp_size = 1 if mesh is None else axis_size(mesh, "tp")
+            ranks = (1 if self._followers is None
+                     else len(self._followers.procs) + 1)
+            if tp_size != ranks:
+                raise ValueError(
+                    f"the replica holds {ranks} card(s) but its loader's "
+                    f"mesh has tp={tp_size}: ask for num_gpus={tp_size}")
+            self.engine = ContinuousBatchingEngine(params, cfg, mesh=mesh,
+                                                   **engine_kw)
+        except BaseException:
+            if self._followers is not None:
+                self._followers.stop(timeout=5)
+            raise
 
     def __call__(self, prompt, max_new_tokens: Optional[int] = None,
                  temperature: float = 0.0, top_k: Optional[int] = None,
@@ -1433,6 +1666,8 @@ class LLMReplica:
 
     def shutdown(self):
         self.engine.shutdown()
+        if self._followers is not None:
+            self._followers.stop()
 
 
 def llm_deployment(model_loader, *, num_slots: int = 4, max_len: int = 256,
@@ -1452,7 +1687,9 @@ def llm_deployment(model_loader, *, num_slots: int = 4, max_len: int = 256,
         for t in handle.options(stream=True, method_name="stream") \
                 .remote([1, 2, 3]): ...              # token stream
 
-    `loader()` runs in the replica and returns (params, cfg).
+    `loader()` runs in the replica and returns (params, cfg), or (params,
+    cfg, mesh) in every rank of a tensor-parallel replica
+    (ray_actor_options num_gpus=tp; see LLMReplica).
     max_ongoing_requests defaults high: admission control lives in the
     engine (waiting queue + slots), not the router."""
     from ray_tpu_torch.serve.deployment import deployment

@@ -35,12 +35,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.transformer import (
-    TransformerConfig,
-    _embed_tokens,
-    layer_params,
-    project_logits,
-)
+from ray_tpu_torch.models.transformer import TransformerConfig, layer_params
 from ray_tpu_torch.ops import rmsnorm
 from ray_tpu_torch.ops.rope import rope_tables
 from ray_tpu_torch.serve._prefix_hash import (  # noqa: F401
@@ -229,12 +224,16 @@ class PrefixCache:
 
 def init_paged_cache(cfg: TransformerConfig, slots: int, num_pages: int,
                      page_size: int, pages_per_slot: int,
-                     device=None) -> Dict:
+                     device=None, mesh=None) -> Dict:
     """Device state of the paged cache: the page pool, per-slot lengths,
-    and the block table (all entries NULL_PAGE)."""
+    and the block table (all entries NULL_PAGE). Under a mesh the pool
+    holds this rank's KV heads (split over "tp"); lengths and the block
+    table are whole on every rank."""
+    from ray_tpu_torch.parallel.mesh import axis_size
+
     device = resolve_device(device)
-    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
-             cfg.head_dim)
+    shape = (cfg.n_layers, num_pages, page_size,
+             cfg.n_kv_heads // axis_size(mesh, "tp"), cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -247,7 +246,7 @@ def init_paged_cache(cfg: TransformerConfig, slots: int, num_pages: int,
 @torch.inference_mode()
 def decode_paged(params, tokens, k_pages, v_pages, lengths, active,
                  block_tables, temps, top_ks, top_ps, gen,
-                 cfg: TransformerConfig, max_len: int):
+                 cfg: TransformerConfig, max_len: int, mesh=None):
     """One decode step for every slot, K/V gathered through the block
     table — the paged twin of llm._decode_slots (same contract plus the
     table). Updates the pool in place; returns (next_tokens [S],
@@ -257,8 +256,10 @@ def decode_paged(params, tokens, k_pages, v_pages, lengths, active,
     `block_tables[slot, lengths[slot] // page_size]` at row
     `lengths[slot] % page_size`; inactive slots park the write in the
     NULL page. Attention gathers the slot's whole table (width =
-    pages_per_slot * page_size) and masks by length."""
-    from ray_tpu_torch.serve.llm import _layer_body, _pick_tokens  # cycle
+    pages_per_slot * page_size) and masks by length. Under a mesh the
+    pool holds this rank's KV heads and `params` its shards."""
+    from ray_tpu_torch.serve.llm import (_embed, _layer_body,  # cycle
+                                         _logits, _pick_tokens)
 
     s_ = tokens.shape[0]
     ps = k_pages.shape[2]
@@ -266,7 +267,7 @@ def decode_paged(params, tokens, k_pages, v_pages, lengths, active,
     width = mp * ps
     kvh, hd = k_pages.shape[3], k_pages.shape[4]
     dev = tokens.device
-    x = _embed_tokens(params, tokens[:, None], cfg)  # [S, 1, d]
+    x = _embed(params, tokens[:, None], cfg, mesh)  # [S, 1, d]
     cos, sin = rope_tables(cfg.head_dim, max_len, cfg.rope_theta, dev)
     positions = lengths[:, None]
     pos_w = torch.where(active, lengths.clamp(max=max_len - 1), 0)
@@ -286,9 +287,9 @@ def decode_paged(params, tokens, k_pages, v_pages, lengths, active,
 
     for i, lp in enumerate(layer_params(params)):
         x = _layer_body(x, lp, k_pages[i], v_pages[i], cfg, cos, sin,
-                        positions, write_kv, valid)
+                        positions, write_kv, valid, mesh)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = project_logits(x[:, -1], params, cfg)
+    logits = _logits(x[:, -1], params, cfg, mesh)
     new_lengths = torch.where(active, lengths + 1, lengths)
     if temps is None:
         next_tokens = torch.argmax(logits, dim=-1)
@@ -300,7 +301,7 @@ def decode_paged(params, tokens, k_pages, v_pages, lengths, active,
 @torch.inference_mode()
 def prefill_chunk_paged(params, tokens, n_valid: int, slot: int, offset: int,
                         k_pages, v_pages, lengths, block_tables,
-                        cfg: TransformerConfig, max_len: int):
+                        cfg: TransformerConfig, max_len: int, mesh=None):
     """Chunked prefill into pages — the paged twin of llm._prefill_chunk.
     Chunk rows scatter into the pages the slot's block-table row names;
     padding rows and anything past `max_len` drop into the NULL page.
@@ -310,8 +311,8 @@ def prefill_chunk_paged(params, tokens, n_valid: int, slot: int, offset: int,
 
     Prefix-cache resumption needs nothing special: the engine starts
     `offset` at the shared-prefix boundary and the gathered pages already
-    hold the donor's K/V rows below it."""
-    from ray_tpu_torch.serve.llm import _layer_body  # cycle
+    hold the donor's K/V rows below it. Under a mesh, as decode_paged."""
+    from ray_tpu_torch.serve.llm import _embed, _layer_body, _logits  # cycle
 
     _, c = tokens.shape
     ps = k_pages.shape[2]
@@ -319,7 +320,7 @@ def prefill_chunk_paged(params, tokens, n_valid: int, slot: int, offset: int,
     width = mp * ps
     kvh, hd = k_pages.shape[3], k_pages.shape[4]
     dev = tokens.device
-    x = _embed_tokens(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, mesh)
     cos, sin = rope_tables(cfg.head_dim, max_len, cfg.rope_theta, dev)
     pos = offset + torch.arange(c, device=dev)
     positions = pos[None, :]
@@ -340,9 +341,9 @@ def prefill_chunk_paged(params, tokens, n_valid: int, slot: int, offset: int,
 
     for i, lp in enumerate(layer_params(params)):
         x = _layer_body(x, lp, k_pages[i], v_pages[i], cfg, cos, sin,
-                        positions, write_kv, valid)
+                        positions, write_kv, valid, mesh)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = project_logits(x[:, n_valid - 1], params, cfg)
+    logits = _logits(x[:, n_valid - 1], params, cfg, mesh)
     # fill_ runs on the device; `lengths[slot] = n` would copy a host
     # scalar and wait for every step already enqueued.
     lengths[slot].fill_(offset + n_valid)

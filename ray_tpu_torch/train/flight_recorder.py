@@ -33,9 +33,10 @@ Usage (inside a train_loop_per_worker):
             s.fence(loss)                   # torch.cuda.synchronize
         train.report({"loss": float(loss)}) # step records ride along
 
-Collective time needs no annotation: `train.allreduce_gradients`
-attributes its own wall time to the "collective" phase (the JAX
-package's observer on util.collective waits for ROADMAP A5). Phases not
+Collective time needs no annotation: every eager op of util.collective
+reaches the "collective" phase through an op observer the profiler
+registers (as in the JAX package), and `train.allreduce_gradients` over
+the torch process group attributes its own wall time there. Phases not
 covered by an explicit `phase(...)`/`fence` land in "other_s", so the
 breakdown always sums to the step wall time.
 """
@@ -67,6 +68,7 @@ _tls = threading.local()  # .step = the thread's in-flight _StepHandle
 
 _metrics_lock = threading.Lock()
 _metrics: Optional[Dict] = None
+_collective_hooked = False
 
 
 def peak_flops_per_s() -> Optional[float]:
@@ -136,6 +138,24 @@ def note_phase(name: str, seconds: float) -> None:
     step = getattr(_tls, "step", None)
     if step is not None:
         step._phases[name] = step._phases.get(name, 0.0) + seconds
+
+
+def _collective_observer(op_name: str, seconds: float,
+                         info: Optional[dict] = None) -> None:
+    # `info` carries {tier, algo, bytes, ...} from the collective layer;
+    # step attribution only needs the wall time, but accepting it keeps
+    # this on the three-arg observer protocol.
+    note_phase("collective", seconds)
+
+
+def _ensure_collective_hook() -> None:
+    global _collective_hooked
+    if _collective_hooked:
+        return
+    _collective_hooked = True
+    from ray_tpu_torch.util.collective import collective as col
+
+    col.add_op_observer(_collective_observer)
 
 
 def _synchronize(tree: Any) -> None:
@@ -270,6 +290,7 @@ class StepProfiler:
                 rank = None
         self.rank = rank
         self._rank_tag = {"rank": str(rank if rank is not None else "-")}
+        _ensure_collective_hook()
         # Metric series keys resolved ONCE — _finish runs per step and
         # must not merge/sort tag dicts or take the registry lock there.
         self._m = _recorder_metrics() if self._emit else None

@@ -11,8 +11,11 @@ The backend is NCCL when the workers hold GPUs and gloo otherwise. Each
 gang epoch rendezvouses at its own `tcp://<rank-0 address>:<port>`, a
 port rank 0 picks afresh: a rank left over from a torn-down attempt, or
 one resized out, knows only the old address and can never join the new
-group (the JAX package stamps its DCN rendezvous keys with the epoch for
-the same reason, backend.py:70-92).
+group. With `dp_sync="dcn"` (the JAX package's JaxConfig default) the
+workers also join the "train_dp" DCN collective group, whose rendezvous
+keys and ident frames carry the gang epoch (the JAX package's fence,
+backend.py:70-92), and whose every op has a deadline; a resize tears it
+down and rebuilds it at the new epoch.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import logging
 from dataclasses import dataclass
 from typing import Optional
 
-from ray_tpu_torch.train.backend import Backend, BackendConfig
+from ray_tpu_torch.train.backend import (Backend, BackendConfig,
+                                         _destroy_dcn_group, _init_dcn_group)
 from ray_tpu_torch.train.trainer import DataParallelTrainer
 
 logger = logging.getLogger("ray_tpu_torch.train.torch")
@@ -34,10 +38,14 @@ _NCCL_DEVICE = [0]
 class TorchConfig(BackendConfig):
     """backend: "nccl" or "gloo"; None picks NCCL when each worker holds
     a GPU and gloo otherwise. init_timeout_s bounds the rendezvous and
-    every collective of the group."""
+    every collective of the group. dp_sync: "dcn" (the default) also
+    joins a gang of more than one worker to the "train_dp" DCN group
+    that `train.allreduce_gradients(grads, "train_dp")` reduces over;
+    "none" leaves gradient sync to the process group alone."""
 
     backend: Optional[str] = None
     init_timeout_s: float = 120.0
+    dp_sync: str = "dcn"
 
     def backend_cls(self):
         return _TorchBackend
@@ -64,10 +72,11 @@ class _TorchBackend(Backend):
                          exc_info=True)
 
     def on_resize(self, worker_group, backend_config: TorchConfig):
-        """Destroy the group on every surviving rank, then re-create it
-        at the new world size under the bumped gang epoch (a new port),
-        so a departed rank still holding the old address can never join
-        (reference: _JaxBackend.on_resize, backend.py:99-127)."""
+        """Destroy the groups on every surviving rank, then re-create them
+        at the new world size under the bumped gang epoch (a new port, and
+        "train_dp" keys of the new epoch), so a departed rank still
+        holding the old address can never join (reference:
+        _JaxBackend.on_resize, backend.py:99-127)."""
         worker_group.execute(_torch_process_group_destroy)
         _init_group(worker_group, backend_config)
 
@@ -81,6 +90,9 @@ def _init_group(worker_group, cfg: TorchConfig) -> None:
         addr = worker_group.execute_single(0, _get_host_ip)
     port = worker_group.execute_single(0, _pick_free_port)
     local_ranks = [nodes[:r].count(nodes[r]) for r in range(n)]
+    if cfg.dp_sync not in ("dcn", "none"):
+        raise ValueError(f"dp_sync must be 'dcn' or 'none', got "
+                         f"{cfg.dp_sync!r}")
     worker_group.execute_with_rank(
         _torch_process_group_init,
         init_method=f"tcp://{addr}:{port}",
@@ -88,6 +100,8 @@ def _init_group(worker_group, cfg: TorchConfig) -> None:
         backend=cfg.resolved_backend(worker_group),
         timeout_s=cfg.init_timeout_s,
         local_ranks=local_ranks,
+        dcn_epoch=(getattr(worker_group, "epoch", 0)
+                   if cfg.dp_sync == "dcn" and n > 1 else None),
     )
 
 
@@ -107,7 +121,9 @@ def _pick_free_port() -> int:
 
 def _torch_process_group_init(rank: int, init_method: str, world_size: int,
                               backend: str, timeout_s: float,
-                              local_ranks):
+                              local_ranks, dcn_epoch: Optional[int] = None):
+    """Join the process group; with a `dcn_epoch`, the "train_dp" DCN
+    group of that gang epoch too."""
     import datetime
 
     import torch
@@ -131,6 +147,8 @@ def _torch_process_group_init(rank: int, init_method: str, world_size: int,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s),
     )
+    if dcn_epoch is not None:
+        _init_dcn_group(rank, world_size, epoch=dcn_epoch)
     return True
 
 
@@ -154,10 +172,13 @@ def get_device():
 
 
 def _torch_process_group_destroy():
+    """Leave the process group and, where this worker joined it, the
+    "train_dp" DCN group."""
     import torch.distributed as dist
 
     if dist.is_initialized():
         dist.destroy_process_group()
+    _destroy_dcn_group()
     return True
 
 

@@ -8,8 +8,10 @@ one, a checkpoint of CUDA bf16 tensors, Tune trials that hold the card
 (and one that finds none and raises), a compiled DAG with a GPU
 stage, and the data library's feed to the card (iter_torch_batches with
 prefetch 0 and 2, bit-equal to the CPU's), a GPU actor pool's
-map_batches, and a closed-loop loadgen trace through a GPU replica.
-Each test skips without a
+map_batches, a closed-loop loadgen trace through a GPU replica, and the
+collective layer on the card (the local group's NCCL allreduce, a DCN
+round trip of a bf16 card tensor, int8/fp8 codes made on the card equal
+to the CPU's). Each test skips without a
 CUDA device. This file imports no JAX, so on a machine with a card and
 without JAX it runs on its own:
 
@@ -1028,3 +1030,93 @@ def test_loadgen_closed_loop_trace_through_a_gpu_replica(cuda_device,
         [r["max_tokens"] for r in records]
     s = report["summary"]
     assert (s["matched"], s["unmatched"], s["errors"]) == (8, 0, 0)
+
+
+# -- the collective layer (util.collective) ---------------------------------
+
+def test_local_group_nccl_allreduce_on_the_card(cuda_device):
+    """The local group over the visible cards reduces card tensors with
+    NCCL and returns each result on its own card."""
+    from ray_tpu_torch.util.collective.local_group import LocalGroup
+    from ray_tpu_torch.util.collective.types import ReduceOp
+
+    g = LocalGroup(device="cuda")
+    n = g.world_size
+    xs = [torch.full((4096,), float(i + 1), device=f"cuda:{i}")
+          for i in range(n)]
+    outs = g.allreduce(xs)
+    for i, o in enumerate(outs):
+        assert o.device == torch.device("cuda", i)
+        assert torch.equal(o.cpu(), torch.full((4096,), n * (n + 1) / 2))
+    assert g.last_op_info["tier"] == "local"
+    assert g.last_op_info["algo"] == "nccl"
+    assert torch.equal(g.allreduce(xs, ReduceOp.MAX)[0].cpu(),
+                       torch.full((4096,), float(n)))
+
+
+def test_dcn_round_trip_of_a_bf16_card_tensor(cuda_device):
+    """A bf16 card tensor crosses a two-rank DCN ring (threads over an
+    in-process KV) and comes back a bf16 tensor on its card, summed bit
+    for bit as on the CPU."""
+    import threading
+
+    from ray_tpu_torch.util.collective.dcn_group import DcnGroup
+
+    class KV:
+        def __init__(self):
+            self.d, self.lock = {}, threading.Lock()
+
+        def kv_put(self, k, v, ns=None, overwrite=True):
+            with self.lock:
+                self.d[(ns, k)] = v
+
+        def kv_get(self, k, ns=None):
+            with self.lock:
+                return self.d.get((ns, k))
+
+        def kv_del(self, k, ns=None):
+            with self.lock:
+                self.d.pop((ns, k), None)
+
+    kv = KV()
+    gen = torch.Generator().manual_seed(0)
+    xs = [torch.randn(1 << 20, generator=gen).to(torch.bfloat16)
+          for _ in range(2)]
+    groups = [DcnGroup(kv, 2, r, "rt", timeout=30, op_timeout=30)
+              for r in range(2)]
+    outs = [None, None]
+
+    def run(r):
+        outs[r] = groups[r].allreduce(xs[r].to(cuda_device), algo="ring")
+
+    try:
+        ts = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+        [t.start() for t in ts]
+        [t.join() for t in ts]
+    finally:
+        for g in groups:
+            g.destroy()
+    want = xs[0] + xs[1]
+    for o in outs:
+        assert o.device == cuda_device and o.dtype == torch.bfloat16
+        assert torch.equal(o.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("scheme", ["int8", "fp8"])
+def test_quant_codes_on_the_card_equal_the_cpu_codes(cuda_device, scheme):
+    """encode() on the card gives the CPU's codes and scales bit for bit,
+    over magnitudes from 1e-20 to 1e20 and a zero block."""
+    from ray_tpu_torch.util.collective import quant
+
+    gen = torch.Generator().manual_seed(1)
+    for e in (-20, -3, 0, 3, 20):
+        x = torch.randn(100_003, generator=gen) * 10.0 ** e
+        x[:256] = 0.0
+        a, b = quant.encode(x.to(cuda_device), scheme), quant.encode(x,
+                                                                     scheme)
+        assert a.codes.device == cuda_device
+        assert torch.equal(a.codes.cpu(), b.codes)
+        assert torch.equal(a.scales.cpu().view(torch.int32),
+                           b.scales.view(torch.int32))
+        assert torch.equal(quant.decode(a).cpu().view(torch.int32),
+                           quant.decode(b).view(torch.int32))

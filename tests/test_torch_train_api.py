@@ -13,10 +13,11 @@ has not got:
   * A7 models/conv.py: `test_resnet_dp_from_images` asserts that the
     port's images reach a dataset but that its ResNet is still missing
     (the trainers' datasets are in tests/test_torch_train_data.py);
-  * A5 util.collective: the DCN epoch fence and op deadline become the
-    port's own — each gang epoch rendezvouses its torch process group at
-    a new address, and a gloo op on a silent peer raises within the
-    group's timeout;
+  * the DCN epoch fence and op deadline: here they are checked on the
+    port's torch process group (each gang epoch rendezvouses at a new
+    address, and a gloo op on a silent peer raises within the group's
+    timeout); tests/test_torch_train_dcn.py checks them on the port's
+    util.collective DCN group against the JAX one;
   * the straggler and live-resize cases run on one node (an injected
     drain shrinks the gang, which then grows back); the straggler on a
     gang spread over two nodes of a `Cluster` is in
@@ -754,7 +755,8 @@ def test_gang_epoch_rejects_stale_rank():
     fresh port): a zombie rank from a torn-down attempt, which knows only
     the old address, can neither find the new group nor join the old one
     (the JAX package's DCN fence stamps its rendezvous keys and ident
-    frames with the epoch, util.collective: ROADMAP A5)."""
+    frames with the epoch; tests/test_torch_train_dcn.py checks the port's
+    own)."""
     from ray_tpu_torch.train.torch import TorchConfig, _init_group
 
     old, new = _FakeGroup(0), _FakeGroup(1)
@@ -790,7 +792,7 @@ except Exception as e:
 def test_dcn_recv_timeout_raises_instead_of_hanging(tmp_path):
     """A peer that joins the group and then goes silent trips the group's
     timeout as an error rather than blocking the surviving rank forever
-    (the JAX package's per-op DCN deadline, util.collective: ROADMAP A5;
+    (the JAX package's per-op DCN deadline, util.collective;
     in the port the deadline is TorchConfig.init_timeout_s)."""
     from ray_tpu_torch.train.torch import _pick_free_port
 
@@ -871,7 +873,7 @@ def test_ring_buffer_bounds_memory():
 def test_collective_time_attributed_via_observer():
     """The port's allreduce_gradients attributes its own wall time to the
     step's "collective" phase (the JAX package's observer on
-    util.collective: ROADMAP A5), here on a gloo group of one."""
+    util.collective), here on a gloo group of one."""
     import datetime
 
     import torch
@@ -1145,7 +1147,7 @@ def test_sharded_state_save_load_roundtrip(tmp_path):
 def test_epoch_fence_rejects_stale_rank_mid_resize():
     """A resize rebuilds the process group at a new address under the
     bumped epoch: a departed rank that still holds the old address cannot
-    join (the JAX package's DCN fence, util.collective: ROADMAP A5)."""
+    join (the JAX package's DCN fence, util.collective)."""
     from ray_tpu_torch.train.torch import TorchConfig, _TorchBackend
 
     class _Resized(_FakeGroup):
