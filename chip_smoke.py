@@ -263,6 +263,29 @@ prints no result line:
            on the card over gloo (gloo on card tensors checked first)
            against the same model at tp=1: the same tokens. Prints the
            decode step ms of each.
+  rl       the RL stack (ray_tpu_torch.rl) on Nature-CNN frames: a
+           synthetic 84 x 84 x 4 env (FrameSideEnv, 6 actions; ale-py is
+           not installed). The Nature-CNN policy (feature 128,
+           hidden 64) on the card against the CPU, f32 with TF32 off,
+           batch 32: logits, values, the PPO loss and every gradient
+           within rtol = atol = 1e-4. PPO from one learner actor holding
+           the card, 4 CPU env runners x 1,000 frames, minibatch 128, 10
+           epochs, lr 1e-3, 2 to 8 iterations (none begun after 150 s,
+           none once the return gate below holds): finite losses, the
+           learner's tensors on the card, the runners' weights equal to
+           the learner's after each broadcast, the best mean return at
+           least 1 above a uniform policy's 3.33 (over 5 standard
+           deviations of its 80-episode mean); prints the learner's
+           throughput, the split of one learner call (shipping, the copy
+           to the card, the update, the readback; the flight recorder in
+           the learner), frames/s of sampling, seconds an iteration and
+           the learner's peak memory. Two learners at num_gpus=0.5 over
+           the DCN group: the reduced gradient and the updated weights
+           within rel L2 1e-5 of one learner's on the same batch, both
+           ranks' weights bit-equal; the collective's share of an update.
+           One iteration of IMPALA and of DQN (double, PER) with the
+           learner on the card: finite losses, the target network on the
+           card. None of the five kernels launches (driver and learners).
 
 Then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -6073,6 +6096,561 @@ def phase_serve_tp(slice_step_ms, device_name):
     return counts["rmsnorm_launches"]
 
 
+# -- rl: PPO on Nature-CNN frames from learner actors on the card ----------
+
+RL_FRAME = (84, 84, 4)      # Atari's frame stack, the newest frame last
+RL_ACTIONS = 6
+RL_EPISODE = 20
+RL_RANDOM_RETURN = RL_EPISODE / RL_ACTIONS  # a uniform policy's expectation
+# The best mean return must beat the random expectation by this: a
+# reported mean covers the last 20 episodes of each of 4 runners, 1,600
+# steps, whose standard deviation under a uniform policy is
+# sqrt(20 * (1/6) * (5/6) / 80) = 0.19, so 1.0 is over 5 of them. PPO's
+# clip bounds how far one iteration moves the policy: the second
+# iteration's rollouts return about 5.1, the third's about 6.5.
+RL_MARGIN = 1.0
+RL_ENOUGH = RL_RANDOM_RETURN + RL_MARGIN  # stop iterating once it holds
+RL_RUNNERS, RL_ROLLOUT = 4, 1000     # 4,000 frames an iteration
+RL_MINIBATCH, RL_EPOCHS = 128, 10
+RL_MIN_ITERS, RL_MAX_ITERS = 2, 8
+RL_PPO_BUDGET_S = 150.0     # no new iteration once PPO's took this long
+RL_LR = 1e-3
+RL_PARITY_BATCH = 32
+RL_PARITY_TOL = 1e-4        # rtol = atol, card against CPU, f32, TF32 off
+RL_TWO_LEARNERS_REL_L2 = 1e-5
+RL_TWO_LEARNER_UPDATES = 5
+# A rollout is 1,000 f32 frame stacks (113 MB), four at once: the store
+# holds an iteration's rollouts without spilling.
+RL_STORE_BYTES = 2 * 2**30
+
+
+class FrameSideEnv:
+    """A synthetic Atari-shaped env (ale-py and its ROMs are not
+    installed): 84 x 84 frames stacked 4 deep, the newest last. A
+    bright bar, 12 pixels wide and the frame's height, lies in one of 6
+    vertical strips of the newest frame (the older frames hold earlier
+    bars) and the action must name the strip for +1. Episodes are 20
+    steps: a uniform policy's expected return is 20/6 = 3.33, a policy
+    that reads the newest frame earns up to 20.
+
+    The background is dim noise, as a game's is never blank: on frames
+    of exact zeros the card's f32 convolution (cuDNN's algorithms for the
+    3 x 3 layer) returns rounding-sized values where the exact output is
+    0, so a ReLU's gradient passes where the CPU's is cut, and the third
+    layer's bias gradient moved by 0.046 of 0.15 (f64 agrees exactly)."""
+
+    def __init__(self, seed=None):
+        self._rng = np.random.default_rng(seed)
+        self._stack = np.zeros(RL_FRAME, np.float32)
+        self._t = 0
+        self._strip = 0
+
+    def _push(self):
+        h, w, _ = RL_FRAME
+        strip_w = w // RL_ACTIONS
+        self._strip = int(self._rng.integers(RL_ACTIONS))
+        col = self._strip * strip_w + int(self._rng.integers(
+            0, strip_w - 12 + 1))
+        frame = self._rng.uniform(0.0, 0.2, (h, w, 1)).astype(np.float32)
+        frame[:, col:col + 12] = 1.0
+        # A new array each step: runners keep the observations they ship.
+        self._stack = np.concatenate([self._stack[..., 1:], frame], axis=-1)
+        return self._stack
+
+    def reset(self, *, seed=None, options=None):
+        self._t = 0
+        self._stack = np.zeros(RL_FRAME, np.float32)
+        return self._push(), {}
+
+    def step(self, action):
+        reward = 1.0 if int(action) == self._strip else 0.0
+        self._t += 1
+        return self._push(), reward, self._t >= RL_EPISODE, False, {}
+
+
+class StripEnv(FrameSideEnv):
+    """FrameSideEnv's task with the strip as a one-hot vector: the MLP
+    modules' observation (IMPALA's)."""
+
+    def _push(self):
+        self._strip = int(self._rng.integers(RL_ACTIONS))
+        return np.eye(RL_ACTIONS, dtype=np.float32)[self._strip]
+
+
+def _rl_spec():
+    from ray_tpu_torch.models.conv import ATARI_FILTERS
+    from ray_tpu_torch.rl import ConvModuleSpec
+
+    # ppo.py's conv module: feature 128, hidden = config.hidden[-1:].
+    return ConvModuleSpec(RL_FRAME, RL_ACTIONS, conv_filters=ATARI_FILTERS,
+                          feature_dim=128, hidden=(64,))
+
+
+def _rl_frames(n, seed):
+    env = FrameSideEnv(seed)
+    obs, _ = env.reset()
+    frames = []
+    for _ in range(n):
+        frames.append(obs)
+        obs = env.step(0)[0]
+    return np.stack(frames)
+
+
+def _rl_batch(n, seed):
+    """A PPO minibatch of real frames; the second half carries the first
+    half's advantages reversed, so per-shard advantage normalisation over
+    two halves equals the whole batch's."""
+    rng = np.random.default_rng(seed)
+    adv = rng.normal(size=n).astype(np.float32)
+    adv[n // 2:] = adv[:n // 2][::-1]
+    return {"obs": _rl_frames(n, seed),
+            "actions": rng.integers(0, RL_ACTIONS, n).astype(np.int32),
+            "logp": np.full(n, -np.log(RL_ACTIONS), np.float32),
+            "advantages": adv,
+            "returns": rng.normal(size=n).astype(np.float32)}
+
+
+def _rl_close(got, want, tol) -> dict:
+    got = got.detach().double().cpu()
+    want = want.detach().double().cpu()
+    err = (got - want).abs()
+    return {"max_abs_err": float(err.max()),
+            "ok": bool((err <= tol + tol * want.abs()).all())}
+
+
+def _rl_parity() -> dict:
+    """The Nature-CNN policy on the card against the CPU: logits, values,
+    the PPO loss and every gradient (f32, TF32 off)."""
+    import torch
+
+    from ray_tpu_torch.rl import ConvPolicyModule, ppo_loss
+
+    spec = _rl_spec()
+    cpu = ConvPolicyModule(spec).init(SEED)
+    card = ConvPolicyModule(spec).to("cuda")
+    card.set_weights(cpu.get_weights())
+    b = _rl_batch(RL_PARITY_BATCH, SEED)
+    out = {}
+    for name, mod, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        fwd = mod(tb["obs"])
+        loss, _ = ppo_loss(mod, tb)
+        grads = torch.autograd.grad(loss, list(mod.parameters()))
+        out[name] = (fwd, loss, grads)
+    (cf, cl, cg), (gf, gl, gg) = out["cpu"], out["card"]
+    res = {"logits": _rl_close(gf["action_logits"], cf["action_logits"],
+                               RL_PARITY_TOL),
+           "values": _rl_close(gf["value"], cf["value"], RL_PARITY_TOL),
+           "loss": _rl_close(gl, cl, RL_PARITY_TOL)}
+    names = [k for k, _ in card.named_parameters()]
+    res["grads"] = {n: _rl_close(g, c, RL_PARITY_TOL)
+                    for n, g, c in zip(names, gg, cg)}
+    return res
+
+
+def _rl_learner_info(learner):
+    """Runs in a learner's process: where its tensors live, its peak card
+    memory, its precision flags and its kernel launch counts."""
+    import torch
+
+    devices = {str(p.device) for p in learner.module.parameters()}
+    devices |= {str(v.device) for st in learner.optimizer.state.values()
+                for v in st.values()
+                if torch.is_tensor(v) and v.dim() > 0}
+    cuda = learner.device.type == "cuda"
+    return {"device": str(learner.device), "tensor_devices": sorted(devices),
+            "peak_memory": (torch.cuda.max_memory_allocated(learner.device)
+                            if cuda else 0),
+            "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "launches": {k: fn.launches
+                         for k, fn in _train_launch_counters().items()}}
+
+
+def _rl_profile(learner):
+    from ray_tpu_torch.train.flight_recorder import StepProfiler
+
+    learner.profiler = StepProfiler(rank=0, emit_metrics=False)
+    return True
+
+
+def _rl_records(learner):
+    return learner.profiler.drain_records()
+
+
+def _rl_f32(learner):
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return True
+
+
+def _rl_weights(learner):
+    return learner.get_weights()
+
+
+def _rl_reduced_grads(learner, batch):
+    """Runs in each learner of a group: this rank's half of `batch`, its
+    gradient, and the mean over the group through the DCN allreduce the
+    update uses; the flat f64 vector."""
+    from ray_tpu_torch.rl.core.learner_group import _split_batch
+    from ray_tpu_torch.util import collective as col
+
+    n = col.get_collective_group_size("learner_group")
+    shard = _split_batch(batch, n)[col.get_rank("learner_group")]
+    grads, _ = learner.compute_gradients(shard)
+    return np.concatenate([
+        (col.allreduce(g, "learner_group") / n).double().cpu().numpy().ravel()
+        for g in grads])
+
+
+def _flat_weights(tree) -> np.ndarray:
+    from ray_tpu_torch.rl.core.convert import flatten
+
+    flat = flatten(tree)
+    return np.concatenate([np.asarray(flat[k], np.float64).ravel()
+                           for k in sorted(flat)])
+
+
+def _weights_equal(a, b) -> bool:
+    from ray_tpu_torch.rl.core.convert import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    return set(fa) == set(fb) and all(np.array_equal(fa[k], fb[k])
+                                      for k in fa)
+
+
+def _med(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def _rl_ppo(rt, device) -> dict:
+    """PPO from one learner actor on `device` with RL_RUNNERS CPU runners:
+    per iteration the losses, the weights the runners hold after the
+    broadcast, the learner's call split, its throughput and sampling."""
+    from ray_tpu_torch.models.conv import ATARI_FILTERS
+    from ray_tpu_torch.rl import PPOConfig
+
+    t0 = time.perf_counter()
+    algo = (PPOConfig()
+            .environment(lambda: FrameSideEnv(), obs_shape=RL_FRAME,
+                         num_actions=RL_ACTIONS, conv_filters=ATARI_FILTERS)
+            .env_runners(num_env_runners=RL_RUNNERS,
+                         rollout_length=RL_ROLLOUT)
+            .training(lr=RL_LR, num_epochs=RL_EPOCHS,
+                      minibatch_size=RL_MINIBATCH, device=device)
+            .build())
+    build_s = time.perf_counter() - t0
+    lg = algo.learner_group
+    try:
+        lg.foreach_learner(_rl_profile)
+        walls = []
+        update = lg.update_from_batch
+
+        def timed(batch):
+            t0 = time.perf_counter()
+            out = update(batch)
+            walls.append(time.perf_counter() - t0)
+            return out
+
+        lg.update_from_batch = timed
+        iters, records, call_walls = [], [], []
+        start = time.perf_counter()
+        for i in range(RL_MAX_ITERS):
+            walls.clear()
+            t0 = time.perf_counter()
+            result = algo.train()
+            it_s = time.perf_counter() - t0
+            recs = lg.foreach_learner(_rl_records)[0]
+            learner_w = lg.get_weights()
+            runner_w = rt.get([r.get_weights.remote()
+                               for r in algo.env_runners], timeout=300)
+            losses = {k: v for k, v in result.items()
+                      if k.startswith("learner/")}
+            iters.append({
+                "iteration": result["training_iteration"],
+                "seconds": it_s, "updates": len(walls),
+                "update_wall_s": sum(walls),
+                "episode_return_mean": result["episode_return_mean"],
+                "episodes_total": result["episodes_total"],
+                "losses": losses,
+                "finite": all(np.isfinite(v) for v in losses.values()),
+                "runners_hold_learner_weights": all(
+                    _weights_equal(w, learner_w) for w in runner_w)})
+            records += recs
+            call_walls += list(walls)
+            print(f"rl: PPO iteration {i + 1}: {it_s:.2f} s, mean return "
+                  f"{result['episode_return_mean']:.2f}", file=sys.stderr,
+                  flush=True)
+            if i + 1 >= RL_MIN_ITERS and (
+                    result["episode_return_mean"] >= RL_ENOUGH
+                    or time.perf_counter() - start >= RL_PPO_BUDGET_S):
+                break
+        t0 = time.perf_counter()
+        rt.get([r.sample.remote() for r in algo.env_runners], timeout=600)
+        sample_s = time.perf_counter() - t0
+        info = lg.foreach_learner(_rl_learner_info)[0]
+    finally:
+        algo.stop()
+    ship = [w - r["wall_s"] for w, r in zip(call_walls, records)]
+    samples = RL_MINIBATCH * len(call_walls)
+    return {
+        "build_s": build_s,
+        "iterations": iters,
+        "best_mean_return": max(it["episode_return_mean"] for it in iters),
+        "learner": info,
+        "calls": len(call_walls), "records": len(records),
+        "learner_samples_per_s": samples / sum(call_walls),
+        "learner_samples_per_s_in_actor": samples / sum(
+            r["wall_s"] for r in records),
+        "call_split_ms_median": {
+            "call": _med(call_walls) * 1e3,
+            "ship": _med(ship) * 1e3,
+            "h2d": _med([r["h2d_s"] for r in records]) * 1e3,
+            "update": _med([r["compute_s"] for r in records]) * 1e3,
+            "readback": _med([r["readback_s"] for r in records]) * 1e3},
+        "minibatch_bytes": RL_MINIBATCH * int(np.prod(RL_FRAME)) * 4,
+        "sampling_frames_per_s": RL_RUNNERS * RL_ROLLOUT / sample_s,
+        "iteration_s_median": _med([it["seconds"] for it in iters])}
+
+
+def _rl_two_learners(rt) -> dict:
+    """Two learner actors at num_gpus=0.5 on the one card over the DCN
+    group against one learner in this process: the same update from the
+    same weights on the same batch (f32, TF32 off)."""
+    import torch
+
+    from ray_tpu_torch.rl import ConvPolicyModule, Learner, ppo_loss
+    from ray_tpu_torch.rl.core.learner_group import LearnerGroup
+
+    spec = _rl_spec()
+    factory = lambda: ConvPolicyModule(spec)  # noqa: E731
+    two = LearnerGroup(factory, ppo_loss, num_learners=2, seed=SEED,
+                       lr=RL_LR)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    _rl_f32(None)  # this process's reference learner too
+    try:
+        flags = two.foreach_learner(_rl_f32)
+        w0 = two.get_weights()
+        two.set_weights(w0)
+        b = _rl_batch(2 * RL_MINIBATCH, SEED + 1)
+        ref = Learner(factory(), ppo_loss, seed=SEED, lr=RL_LR,
+                      device="cuda")
+        ref.set_weights(w0)
+        # The gradient the update applies: each rank's half reduced over
+        # the DCN group, against one learner's over the whole batch.
+        import functools
+
+        reduced = two.foreach_learner(functools.partial(_rl_reduced_grads,
+                                                        batch=b))
+        full, _ = ref.compute_gradients(b)
+        full = np.concatenate([g.double().cpu().numpy().ravel()
+                               for g in full])
+        grad_rel = float(np.linalg.norm(reduced[0] - full)
+                         / np.linalg.norm(full))
+        ref_m = ref.update_from_batch(b)
+        two_m = two.update_from_batch(b)
+        ws = two.foreach_learner(_rl_weights)
+        base = _flat_weights(w0)
+        w_ref = _flat_weights(ref.get_weights())
+        w_two = _flat_weights(ws[0])
+        rel = float(np.linalg.norm(w_two - w_ref) / np.linalg.norm(w_ref))
+        # Adam's first step is lr * g / (|g| + eps): elements whose
+        # gradient sits at rounding level move by a rounding-sized share
+        # of lr, so the step's own rel L2 is printed, not gated.
+        d_ref, d_two = w_ref - base, w_two - base
+        step_rel = float(np.linalg.norm(d_two - d_ref)
+                         / np.linalg.norm(d_ref))
+        two.foreach_learner(_rl_profile)
+        for i in range(RL_TWO_LEARNER_UPDATES):
+            two.update_from_batch(_rl_batch(2 * RL_MINIBATCH, SEED + 2 + i))
+        recs = two.foreach_learner(_rl_records)
+        info = two.foreach_learner(_rl_learner_info)
+        after = two.foreach_learner(_rl_weights)
+    finally:
+        two.shutdown()
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    del ref
+    torch.cuda.empty_cache()
+    shares = [r["collective_s"] / r["wall_s"] for rr in recs for r in rr]
+    return {"f32_flags_set": flags, "grad_rel_l2": grad_rel,
+            "ranks_reduced_equal": bool(np.array_equal(reduced[0],
+                                                       reduced[1])),
+            "weights_rel_l2": rel, "step_rel_l2": step_rel,
+            "loss_ref": ref_m["total_loss"], "loss_two": two_m["total_loss"],
+            "weights_bit_equal": _weights_equal(ws[0], ws[1]),
+            "weights_bit_equal_after": _weights_equal(after[0], after[1]),
+            "collective_share_median": _med(shares),
+            "update_ms_median": _med([r["wall_s"] for rr in recs
+                                      for r in rr]) * 1e3,
+            "collective_ms_median": _med([r["collective_s"] for rr in recs
+                                          for r in rr]) * 1e3,
+            "learners": info}
+
+
+def _rl_impala(rt) -> dict:
+    from ray_tpu_torch.rl import IMPALAConfig
+
+    algo = (IMPALAConfig()
+            .environment(lambda: StripEnv(), obs_dim=RL_ACTIONS,
+                         num_actions=RL_ACTIONS)
+            .env_runners(num_env_runners=2, rollout_length=64)
+            .training(updates_per_iteration=4, rollouts_per_update=2)
+            .build())
+    try:
+        t0 = time.perf_counter()
+        result = algo.train()
+        secs = time.perf_counter() - t0
+        info = algo.learner_group.foreach_learner(_rl_learner_info)[0]
+    finally:
+        algo.stop()
+    losses = {k: v for k, v in result.items() if k.startswith("learner/")}
+    return {"seconds": secs, "losses": losses, "learner": info,
+            "finite": bool(losses) and all(np.isfinite(v)
+                                           for v in losses.values())}
+
+
+def _rl_dqn(rt) -> dict:
+    from ray_tpu_torch.models.conv import ATARI_FILTERS
+    from ray_tpu_torch.rl import DQNConfig
+
+    algo = (DQNConfig()
+            .environment(lambda: FrameSideEnv(), obs_shape=RL_FRAME,
+                         num_actions=RL_ACTIONS, conv_filters=ATARI_FILTERS)
+            .env_runners(num_env_runners=2, rollout_length=256)
+            .training(train_batch_size=32, updates_per_iteration=16,
+                      learning_starts=512, buffer_capacity=1024,
+                      double_q=True, prioritized_replay=True)
+            .build())
+    try:
+        t0 = time.perf_counter()
+        result = algo.train()
+        secs = time.perf_counter() - t0
+        info = algo.learner_group.foreach_learner(_rl_learner_info)[0]
+        target = sorted({str(p.device) for net in (algo._target_net,
+                                                    algo._online_net)
+                         for p in net.parameters()})
+    finally:
+        algo.stop()
+    losses = {k: v for k, v in result.items() if k.startswith("learner/")}
+    return {"seconds": secs, "losses": losses, "learner": info,
+            "target_net_devices": target,
+            "buffer_size": result["buffer_size"],
+            "finite": bool(losses) and all(np.isfinite(v)
+                                           for v in losses.values())}
+
+
+def phase_rl(device_name, smi):
+    import gc
+
+    import torch
+
+    import ray_tpu_torch as rt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = _train_launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        parity = _rl_parity()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    parity_s = time.perf_counter() - t0
+    rt.init(num_cpus=8, object_store_memory=RL_STORE_BYTES)
+    try:
+        t0 = time.perf_counter()
+        ppo = _rl_ppo(rt, None)
+        ppo["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = _rl_two_learners(rt)
+        two["seconds"] = time.perf_counter() - t0
+        print(f"rl: two learners {two['seconds']:.2f} s", file=sys.stderr,
+              flush=True)
+        impala = _rl_impala(rt)
+        dqn = _rl_dqn(rt)
+        _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after the rl phase")
+    finally:
+        rt.shutdown()
+    left, _ = _stop_runtime()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    in_learners = {k: sum(x["learner"]["launches"][k]
+                          for x in (ppo, impala, dqn))
+                   + sum(x["launches"][k] for x in two["learners"])
+                   for k in counters}
+    rec = {"phase": "rl", "card": smi, "model": "Nature CNN (ATARI_FILTERS)",
+           "frames": list(RL_FRAME), "actions": RL_ACTIONS,
+           "parity": {"batch": RL_PARITY_BATCH, "tol": RL_PARITY_TOL,
+                      "seconds": parity_s, **parity},
+           "ppo": ppo, "two_learners": two, "impala": impala, "dqn": dqn,
+           "precision": {"parity_and_two_learners": "f32, TF32 off",
+                         "timed_ppo": "convolutions "
+                         + ("TF32" if ppo["learner"]["cudnn_tf32"] else "f32")
+                         + ", matmuls "
+                         + ("TF32" if ppo["learner"]["matmul_tf32"]
+                            else "f32")},
+           "random_return": RL_RANDOM_RETURN, "margin": RL_MARGIN,
+           "launches_driver": launches, "launches_learners": in_learners,
+           "procs_left": left}
+    emit(rec)
+    print(json.dumps({"rl_numbers": {
+        "card": smi,
+        "learner_samples_per_s": ppo["learner_samples_per_s"],
+        "learner_samples_per_s_in_actor":
+            ppo["learner_samples_per_s_in_actor"],
+        "call_split_ms_median": ppo["call_split_ms_median"],
+        "sampling_frames_per_s": ppo["sampling_frames_per_s"],
+        "iteration_s_median": ppo["iteration_s_median"],
+        "peak_memory_learner": ppo["learner"]["peak_memory"],
+        "best_mean_return": ppo["best_mean_return"],
+        "two_learner_collective_share": two["collective_share_median"],
+        "two_learner_update_ms": two["update_ms_median"]}}), flush=True)
+    bad = {k: parity[k] for k in ("logits", "values", "loss")
+           if not parity[k]["ok"]}
+    bad.update({k: v for k, v in parity["grads"].items() if not v["ok"]})
+    check(not bad, f"card against CPU beyond {RL_PARITY_TOL}: {bad}")
+    check(all(it["finite"] for it in ppo["iterations"]),
+          "PPO losses not finite")
+    check(ppo["learner"]["device"].startswith("cuda")
+          and all(d.startswith("cuda")
+                  for d in ppo["learner"]["tensor_devices"]),
+          f"the PPO learner's tensors: {ppo['learner']}")
+    check(all(it["runners_hold_learner_weights"] for it in ppo["iterations"]),
+          "a runner's weights differ from the learner's after a broadcast")
+    check(ppo["best_mean_return"] >= RL_RANDOM_RETURN + RL_MARGIN,
+          f"PPO's best mean return {ppo['best_mean_return']} is not "
+          f"{RL_MARGIN} above a random policy's {RL_RANDOM_RETURN:.2f}")
+    check(ppo["calls"] == ppo["records"] > 0,
+          f"{ppo['calls']} learner calls, {ppo['records']} records")
+    check(two["grad_rel_l2"] <= RL_TWO_LEARNERS_REL_L2
+          and two["weights_rel_l2"] <= RL_TWO_LEARNERS_REL_L2
+          and two["ranks_reduced_equal"],
+          f"two learners against one: reduced gradient rel L2 "
+          f"{two['grad_rel_l2']}, weights {two['weights_rel_l2']}")
+    check(two["weights_bit_equal"] and two["weights_bit_equal_after"],
+          "the two learners' weights differ")
+    check(all(i["device"].startswith("cuda") for i in two["learners"]),
+          f"the two learners: {two['learners']}")
+    check(impala["finite"] and impala["learner"]["device"].startswith("cuda"),
+          f"IMPALA: {impala}")
+    check(dqn["finite"] and dqn["learner"]["device"].startswith("cuda")
+          and all(d.startswith("cuda") for d in dqn["target_net_devices"]),
+          f"DQN: {dqn}")
+    check(not any(launches.values()) and not any(in_learners.values()),
+          f"kernels launched on the rl path: {launches}, {in_learners}")
+    check(not left, f"processes after the phase: {left}")
+    return {k: launches[k] + in_learners[k] for k in launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -6122,6 +6700,7 @@ def main() -> int:
     dcn = run(phase_train_dcn, train, name)
     serve_tp_launches = run(phase_serve_tp, slice_rec["engine_step_ms"],
                             name)
+    rl_launches = run(phase_rl, name, smi)
     emit({"phase": "timing", "seconds": seconds})
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "ray_tpu") or m.startswith(("jax.",
@@ -6195,6 +6774,9 @@ def main() -> int:
             records[-1]["design"] = FLASH_DESIGN[kname]
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())
+        # The rl path runs no kernel of these five (convolutions and
+        # dense layers only); phase_rl checked its count is 0.
+        r["launches_rl"] = rl_launches[r["name"]]
         r["at_moe_train_shape"] = moe["kernels"][r["name"]]
         r["at_train_dcn_shape"] = dcn["kernels_at_dp_shape"][r["name"]]
     missing = [r["name"] for r in records

@@ -92,13 +92,14 @@ def serialize(value: Any) -> SerializedObject:
     return SerializedObject(pickled, buffers)
 
 
-def deserialize(data: memoryview) -> Any:
+def deserialize(data: memoryview, wrap=None) -> Any:
     """Deserialize from a framed buffer.
 
     Out-of-band buffers are reconstructed as memoryviews into `data` —
-    zero-copy when `data` maps shared memory. The caller is responsible for
-    keeping the backing store pinned while the value is alive (the object
-    store client pins via refcount, releasing on a weakref callback).
+    zero-copy when `data` maps shared memory — each passed through
+    `wrap(view)` when given. The caller is responsible for keeping the
+    backing store pinned while any of them is alive (the object store
+    client wraps each view in an exporter whose lifetime holds the pin).
     """
     if len(data) < 4:
         raise ValueError("corrupt serialized object (too short)")
@@ -119,7 +120,8 @@ def deserialize(data: memoryview) -> Any:
     off = _pad(off + pickle_len)
     bufs = []
     for ln in lens:
-        bufs.append(data[off : off + ln])
+        view = data[off : off + ln]
+        bufs.append(view if wrap is None else wrap(view))
         off = _pad(off + ln)
     return pickle.loads(pickled, buffers=bufs)
 

@@ -293,6 +293,29 @@ class ActorMethod:
         )
 
 
+class _PinHolder:
+    """Lives exactly as long as some zero-copy view of one stored object:
+    every _StoreBuffer of the object refers to it, and its finalizer
+    releases the object's pin."""
+
+    __slots__ = ("__weakref__",)
+
+
+class _StoreBuffer:
+    """One out-of-band buffer of a stored object, exported through the
+    buffer protocol (PEP 688): every array built over it keeps it, and so
+    the object's _PinHolder, alive, whatever container holds the arrays."""
+
+    __slots__ = ("_view", "_holder")
+
+    def __init__(self, view: memoryview, holder: _PinHolder):
+        self._view = view
+        self._holder = holder
+
+    def __buffer__(self, flags):
+        return memoryview(self._view)
+
+
 class _Pin:
     """Keeps a store object pinned while a deserialized value is alive."""
 
@@ -360,7 +383,6 @@ class CoreClient:
         self._batch_calls: Dict[bytes, tuple] = {}
         self._actor_locks: Dict[bytes, asyncio.Lock] = {}
         self._actor_events: Dict[bytes, threading.Event] = {}
-        self._pins: Dict[bytes, _Pin] = {}
         self._value_finalizers: list = []  # value-lifetime pins (see _read_store)
         self._in_store: set = set()  # oids known to live in shared store
         self._push_handlers = {}
@@ -582,15 +604,11 @@ class CoreClient:
                 self.loop.call_soon_threadsafe(flusher.cancel)
             except RuntimeError:
                 pass
-        # Decide unmap safety BEFORE releasing session pins: a session pin
-        # means some non-weakrefable container of zero-copy views was
-        # fetched, and we cannot know whether its arrays are still alive.
-        self._live_views_at_disconnect = bool(self._pins) or any(
+        # Unmap safety: a live finalizer means some zero-copy view of the
+        # store is still alive.
+        self._live_views_at_disconnect = any(
             f.alive for f in self._value_finalizers
         )
-        for pin in self._pins.values():
-            pin.release()
-        self._pins.clear()
 
         async def _close():
             for t in list(self._prefetch_pulls.values()):
@@ -1332,25 +1350,21 @@ class CoreClient:
         view = self.store.get(oid)
         if view is None:
             return _MISSING
-        value = ser.deserialize(view)
         # The store-side refcount from get() is the pin protecting the
-        # zero-copy buffers under `value`. Tie its release to the value's
-        # lifetime where possible so dropped results become spillable;
-        # otherwise hold a session pin (released at disconnect).
-        pin = _Pin(self.store, oid)
-        try:
-            fin = weakref.finalize(value, pin.release)
+        # zero-copy buffers under `value`. It is released when the last of
+        # them is gone, whatever holds them (a dict of arrays too), so
+        # dropped results become spillable; a value with no out-of-band
+        # buffer holds no store memory and releases it at once.
+        holder = _PinHolder()
+        fin = weakref.finalize(holder, _Pin(self.store, oid).release)
+        value = ser.deserialize(view, lambda v: _StoreBuffer(v, holder))
+        del holder
+        if fin.alive:
             self._value_finalizers.append(fin)
             if len(self._value_finalizers) > 256:
                 self._value_finalizers = [
                     f for f in self._value_finalizers if f.alive
                 ]
-        except TypeError:  # not weakref-able (tuple/dict/primitive)
-            old = self._pins.get(oid.binary())
-            if old is not None:
-                pin.release()  # keep a single session pin per object
-            else:
-                self._pins[oid.binary()] = pin
         self._in_store.add(oid.binary())
         return value
 

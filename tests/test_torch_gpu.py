@@ -11,7 +11,9 @@ prefetch 0 and 2, bit-equal to the CPU's), a GPU actor pool's
 map_batches, a closed-loop loadgen trace through a GPU replica, and the
 collective layer on the card (the local group's NCCL allreduce, a DCN
 round trip of a bf16 card tensor, int8/fp8 codes made on the card equal
-to the CPU's). Each test skips without a
+to the CPU's), and the RL stack (the Nature-CNN policy against the CPU,
+a learner on the card by default, a two-learner group sharing the card).
+Each test skips without a
 CUDA device. This file imports no JAX, so on a machine with a card and
 without JAX it runs on its own:
 
@@ -1120,3 +1122,91 @@ def test_quant_codes_on_the_card_equal_the_cpu_codes(cuda_device, scheme):
                            b.scales.view(torch.int32))
         assert torch.equal(quant.decode(a).cpu().view(torch.int32),
                            quant.decode(b).view(torch.int32))
+
+
+# -- the RL stack (ray_tpu_torch.rl) on the card ------------------------------
+
+def _nature_cnn_spec():
+    from ray_tpu_torch.models.conv import ATARI_FILTERS
+    from ray_tpu_torch.rl import ConvModuleSpec
+
+    return ConvModuleSpec((84, 84, 4), 6, conv_filters=ATARI_FILTERS,
+                          feature_dim=128, hidden=(64,))
+
+
+def _ppo_batch(n, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    # Dense frames: on exact-zero regions the card's f32 3 x 3 convolution
+    # returns rounding-sized values where the CPU's are 0, and a ReLU's
+    # gradient then passes on one side only (chip_smoke.py FrameSideEnv).
+    return {"obs": rng.uniform(size=(n, 84, 84, 4)).astype(np.float32),
+            "actions": rng.integers(0, 6, n).astype(np.int32),
+            "logp": np.full(n, -1.79, np.float32),
+            "advantages": rng.normal(size=n).astype(np.float32),
+            "returns": rng.normal(size=n).astype(np.float32)}
+
+
+def test_rl_nature_cnn_on_the_card_matches_the_cpu(cuda_device):
+    """The Nature-CNN policy's logits, values, PPO loss and every gradient
+    on the card within rtol = atol = 1e-4 of the CPU's (f32, TF32 off)."""
+    from ray_tpu_torch.rl import ConvPolicyModule, ppo_loss
+
+    cpu = ConvPolicyModule(_nature_cnn_spec()).init(0)
+    card = ConvPolicyModule(_nature_cnn_spec()).to(cuda_device)
+    card.set_weights(cpu.get_weights())
+    b = _ppo_batch(32)
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs = []
+        for mod, dev in ((cpu, "cpu"), (card, cuda_device)):
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            out = mod(tb["obs"])
+            loss, _ = ppo_loss(mod, tb)
+            outs.append([out["action_logits"], out["value"], loss,
+                         *torch.autograd.grad(loss, list(mod.parameters()))])
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+    for want, got in zip(*outs):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_rl_learner_computes_on_the_card_by_default(cuda_device):
+    from ray_tpu_torch.rl import ConvPolicyModule, Learner, ppo_loss
+
+    learner = Learner(ConvPolicyModule(_nature_cnn_spec()), ppo_loss, seed=0)
+    assert learner.device.type == "cuda"
+    b = _ppo_batch(64, seed=1)
+    first = learner.update_from_batch(b)
+    for _ in range(5):
+        last = learner.update_from_batch(b)
+    assert last["vf_loss"] < first["vf_loss"]
+    assert all(p.is_cuda for p in learner.module.parameters())
+    assert all(v.is_cuda for st in learner.optimizer.state.values()
+               for v in st.values() if torch.is_tensor(v) and v.dim() > 0)
+
+
+def test_rl_learner_group_holds_the_card(cuda_device):
+    """A LearnerGroup with no device holds the GPU through the raylet (1/N
+    each) and computes on the card its worker was granted."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl import ConvPolicyModule, LearnerGroup, ppo_loss
+
+    spec = _nature_cnn_spec()
+    rt.init(num_cpus=4)
+    try:
+        group = LearnerGroup(lambda: ConvPolicyModule(spec), ppo_loss,
+                             num_learners=2, seed=0)
+        try:
+            devices = group.foreach_learner(lambda lr: str(lr.device))
+            assert devices == ["cuda:0", "cuda:0"]
+            m = group.update_from_batch(_ppo_batch(64, seed=2))
+            assert all(map(lambda v: v == v, m.values()))
+            w = group.foreach_learner(lambda lr: lr.get_weights()["pi"][0]["w"])
+            assert torch.equal(torch.from_numpy(w[0]), torch.from_numpy(w[1]))
+        finally:
+            group.shutdown()
+    finally:
+        rt.shutdown()

@@ -17,6 +17,13 @@ them; ROADMAP §C, "Fixed"; R4 is in test_torch_spill_uri.py):
   the first that shares a lease key) recorded no task events, so
   `list_tasks`, `summarize_tasks` and the timeline showed only the first.
   The worker now records RUNNING and FINISHED or FAILED for each.
+- R7: a value read from the store that is not weakref-able (a dict or a
+  list of arrays, as an RL rollout is) held its pin until the session
+  ended, so every such result stayed in the store: PPO's 113 MB
+  rollouts filled a 2 GiB store in five iterations and a restore then
+  failed ("nothing left to spill"). Each out-of-band buffer is now
+  exported through an object whose lifetime holds the pin (PEP 688), so
+  the pin goes with the last array, whatever held it.
 
 Run as a script, it prints the actor call's round trip and a 2000-call
 burst on the runtime that PYTHONPATH selects, so a commit and its parent
@@ -229,6 +236,37 @@ def test_every_task_of_a_leased_burst_is_listed(runtime):
                for k, v in state.summarize_tasks().items()}
     assert summary["leased_ok"] == {"FINISHED": 2 * n}
     assert summary["leased_bad"] == {"FAILED": 1}
+
+
+def test_a_dict_of_arrays_read_from_the_store_lets_its_object_go(runtime):
+    """Twelve 64 MiB results, each a dict holding its array, through the
+    256 MiB store: each is read, checked and dropped. With the pin held
+    for the session, the fifth no longer fits and nothing can be spilled;
+    now each is evicted or spilled once its array is gone. A view kept
+    alive keeps its object readable."""
+    import gc
+
+    import numpy as np
+
+    @rt.remote
+    class Rollouts:
+        def sample(self, i):
+            return {"obs": np.full(16 * 2**20, float(i), np.float32),
+                    "step": i}
+
+    r = Rollouts.remote()
+    try:
+        kept = None
+        for i in range(12):
+            out = rt.get(r.sample.remote(i), timeout=120)
+            assert out["step"] == i and float(out["obs"][-1]) == i
+            if i == 3:
+                kept = out["obs"][:4]
+            del out
+            gc.collect()
+        assert kept.tolist() == [3.0] * 4
+    finally:
+        rt.kill(r)
 
 
 def main():

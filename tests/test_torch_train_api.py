@@ -10,9 +10,6 @@ the two outcomes and the outcome the JAX test asserts. Cases of pure code
 (shard remapping, the resize governor, the flight recorder, backoff) run
 here against both packages. Where the JAX test reaches a module the port
 has not got:
-  * A7 models/conv.py: `test_resnet_dp_from_images` asserts that the
-    port's images reach a dataset but that its ResNet is still missing
-    (the trainers' datasets are in tests/test_torch_train_data.py);
   * the DCN epoch fence and op deadline: here they are checked on the
     port's torch process group (each gang epoch rendezvouses at a new
     address, and a gloo op on a silent peer raises within the group's
@@ -22,6 +19,9 @@ has not got:
     drain shrinks the gang, which then grows back); the straggler on a
     gang spread over two nodes of a `Cluster` is in
     tests/test_torch_cluster.py.
+`test_resnet_dp_from_images` runs in this process: two TorchTrainer
+workers on gloo train the port's ResNet (models/conv.py) on images that
+read_images streams, as tests/test_train.py's case trains the JAX one.
 Each test carries the `slow` mark where its JAX counterpart does.
 """
 
@@ -677,31 +677,83 @@ def test_get_context_facade(results):
 
 @pytest.mark.slow
 def test_resnet_dp_from_images(tmp_path):
-    """The JAX test trains models/conv.py's ResNet on images read through
-    the data library. The port reads the images and hands the dataset to
-    TorchTrainer; its ResNet (ROADMAP A7) is what is still missing."""
-    import importlib
-
+    """read_images -> DataConfig streaming split -> 2-worker DP ResNet
+    (the port's models/conv.py) through TorchTrainer on gloo, as the JAX
+    test trains its ResNet through JaxTrainer: the loss decreases on a
+    color-separable toy set and accuracy reaches 0.75."""
     from PIL import Image
 
     import ray_tpu_torch as rt
     import ray_tpu_torch.data as rtd
-    from ray_tpu_torch.train import TorchTrainer
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    from ray_tpu_torch.train.data_config import DataConfig
 
+    def loop(config):
+        import os
+
+        import numpy as np
+        import torch
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.models.conv import (ResNetConfig, init_resnet,
+                                               resnet_loss)
+        from ray_tpu_torch.train import allreduce_gradients
+        from ray_tpu_torch.train.checkpoint import (flatten_tree,
+                                                    unflatten_tree)
+
+        cfg = ResNetConfig(num_classes=2, stage_sizes=(1, 1), width=8)
+        leaves, spec = flatten_tree(init_resnet(0, cfg))  # same all ranks
+        leaves = [t.requires_grad_(True) for t in leaves]
+        shard = train.get_dataset_shard("train")
+        for epoch in range(config["epochs"]):
+            rows = list(shard.iter_rows())
+            xs = np.stack([r["image"] for r in rows]).astype(
+                np.float32) / 255.0
+            ys = np.asarray([int(os.path.basename(r["path"]).split("_")[1])
+                             for r in rows], dtype=np.int64)
+            loss, metrics = resnet_loss(
+                unflatten_tree(spec, leaves),
+                {"x": torch.from_numpy(xs), "y": torch.from_numpy(ys)}, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            if train.get_world_size() > 1:
+                grads = flatten_tree(allreduce_gradients(
+                    unflatten_tree(spec, list(grads))))[0]
+            with torch.no_grad():
+                for p, g in zip(leaves, grads):
+                    p.sub_(config["lr"] * g)
+            train.report({"epoch": epoch, "loss": float(loss),
+                          "accuracy": float(metrics["accuracy"])})
+
+    img_dir = tmp_path / "imgs"
+    img_dir.mkdir()
     rng = np.random.default_rng(0)
-    for i in range(8):
-        img = rng.integers(0, 255, (16, 16, 3), dtype=np.uint8)
-        Image.fromarray(img).save(tmp_path / f"img_{i % 2}_{i:03d}.png")
-    rt.init(num_cpus=2)
+    for i in range(32):
+        label = i % 2
+        base = np.full((16, 16, 3), 30, dtype=np.uint8)
+        # class 0: red-dominant; class 1: blue-dominant (+ noise)
+        base[:, :, 0 if label == 0 else 2] = 200
+        noisy = np.clip(base.astype(np.int16)
+                        + rng.integers(-25, 25, base.shape), 0,
+                        255).astype(np.uint8)
+        Image.fromarray(noisy).save(img_dir / f"img_{label}_{i:03d}.png")
+    rt.init(num_cpus=4)
     try:
-        ds = rtd.read_images(str(tmp_path), parallelism=4)
-        assert ds.count() == 8
-        assert TorchTrainer(lambda: None, datasets={"train": ds}).datasets \
-            == {"train": ds}
+        ds = rtd.read_images(str(img_dir), parallelism=4)
+        result = TorchTrainer(
+            loop,
+            train_loop_config={"epochs": 6, "lr": 0.2},
+            scaling_config=ScalingConfig(num_workers=2),
+            run_config=RunConfig(name="resnet", storage_path=str(tmp_path)),
+            datasets={"train": ds},
+            dataset_config=DataConfig(datasets_to_split=["train"]),
+        ).fit()
     finally:
         rt.shutdown()
-    with pytest.raises(ModuleNotFoundError):
-        importlib.import_module("ray_tpu_torch.models.conv")
+    assert result.error is None
+    losses = [m["loss"] for m in result.metrics_history if "loss" in m]
+    assert losses[-1] < losses[0], losses
+    accs = [m["accuracy"] for m in result.metrics_history if "accuracy" in m]
+    assert max(accs) >= 0.75, accs
 
 
 # -- tests/test_train_fault_tolerance.py ----------------------------------
