@@ -269,7 +269,7 @@ prints no result line:
            hidden 64) on the card against the CPU, f32 with TF32 off,
            batch 32: logits, values, the PPO loss and every gradient
            within rtol = atol = 1e-4. PPO from one learner actor holding
-           the card, 4 CPU env runners x 1,000 frames, minibatch 128, 10
+           the card, 4 CPU env runners x 500 frames, minibatch 128, 10
            epochs, lr 1e-3, 2 to 8 iterations (none begun after 150 s,
            none once the return gate below holds): finite losses, the
            learner's tensors on the card, the runners' weights equal to
@@ -286,6 +286,39 @@ prints no result line:
            One iteration of IMPALA and of DQN (double, PER) with the
            learner on the card: finite losses, the target network on the
            card. None of the five kernels launches (driver and learners).
+  rl2      the RL stack's second half. First each update on the card
+           against the CPU, f32 with TF32 off, batch 256, the same
+           state, batch and draws: SAC and CQL (2 x 256 hidden, 10
+           candidate actions), TD3 (400-300), R2D2 (a GRU of 512 over
+           16-step windows with burn-in 2), recurrent PPO, BC and MARWIL;
+           the losses and every gradient (10 x Adam's first moment after
+           one step from zero) from the initial state, then one update's
+           new parameters and targets from a state the CPU warmed by 3
+           updates, each within rtol = atol = 1e-4; and 8 SAC updates
+           replayed as a CUDA graph against the same 8 run eagerly on
+           the card (the same tolerance). Then SAC at those
+           widths (batch 256, lr 3e-4, tau 0.005, gamma 0.99) on a numpy
+           Pendulum-v1 (gymnasium is not installed there): one CPU
+           runner, the update on the card in this process (replayed as a
+           CUDA graph after three eager ones), 400 env steps
+           and 400 updates an iteration, until a best mean return above
+           -400, 24 iterations or 90 s; the best must exceed -800 and the
+           first (random) iteration's by 200; ms an update, samples/s and
+           peak memory printed. Then two iterations each of TD3 and the
+           DDPG preset on Pendulum, recurrent PPO and R2D2 on
+           CueRecallEnv, Ape-X (2 ladder runners, 2 replay shard actors,
+           the Nature CNN on FrameSideEnv frames) and multi-agent PPO on
+           MatchContextEnv with two policies; CQL offline from SAC's own
+           transitions through episodes_to_dataset and train_on_dataset;
+           BC and MARWIL from a dataset of multi-agent PPO's rollouts.
+           Every loss finite, every learner and target tensor on the
+           card, none of the five kernels launched (driver and
+           learners), no process left.
+  workflow a durable workflow of three steps whose middle step is a
+           num_gpus=1 task running BC updates on its card; the last step
+           fails once, resume() finishes without running the GPU step
+           again (a run counter on disk reads 1); a virtual actor keeps
+           its state across two driver processes; no process left.
 
 Then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -6106,11 +6139,14 @@ RL_RANDOM_RETURN = RL_EPISODE / RL_ACTIONS  # a uniform policy's expectation
 # reported mean covers the last 20 episodes of each of 4 runners, 1,600
 # steps, whose standard deviation under a uniform policy is
 # sqrt(20 * (1/6) * (5/6) / 80) = 0.19, so 1.0 is over 5 of them. PPO's
-# clip bounds how far one iteration moves the policy: the second
-# iteration's rollouts return about 5.1, the third's about 6.5.
+# clip bounds how far one iteration moves the policy: at 1,000 frames a
+# runner the second iteration's rollouts returned about 5.1-5.4, the
+# third's about 6.5.
 RL_MARGIN = 1.0
 RL_ENOUGH = RL_RANDOM_RETURN + RL_MARGIN  # stop iterating once it holds
-RL_RUNNERS, RL_ROLLOUT = 4, 1000     # 4,000 frames an iteration
+# 2,000 frames an iteration: 500 a runner (1,000 until the rl2 phase
+# came; the depth cut that keeps the script inside its time limit).
+RL_RUNNERS, RL_ROLLOUT = 4, 500
 RL_MINIBATCH, RL_EPOCHS = 128, 10
 RL_MIN_ITERS, RL_MAX_ITERS = 2, 8
 RL_PPO_BUDGET_S = 150.0     # no new iteration once PPO's took this long
@@ -6119,7 +6155,7 @@ RL_PARITY_BATCH = 32
 RL_PARITY_TOL = 1e-4        # rtol = atol, card against CPU, f32, TF32 off
 RL_TWO_LEARNERS_REL_L2 = 1e-5
 RL_TWO_LEARNER_UPDATES = 5
-# A rollout is 1,000 f32 frame stacks (113 MB), four at once: the store
+# A rollout is 500 f32 frame stacks (56 MB), four at once: the store
 # holds an iteration's rollouts without spilling.
 RL_STORE_BYTES = 2 * 2**30
 
@@ -6175,6 +6211,128 @@ class StripEnv(FrameSideEnv):
     def _push(self):
         self._strip = int(self._rng.integers(RL_ACTIONS))
         return np.eye(RL_ACTIONS, dtype=np.float32)[self._strip]
+
+
+# -- rl2's envs: gymnasium is not installed on the card's machine ----------
+
+PENDULUM_STEPS = 200          # Pendulum-v1's TimeLimit
+
+
+class PendulumEnv:
+    """Pendulum-v1 in numpy (gymnasium's classic-control dynamics: g 10,
+    m 1, l 1, dt 0.05, max speed 8, max torque 2; reward -(theta^2 +
+    0.1 theta_dot^2 + 0.001 u^2) on the normalized angle; truncated
+    after 200 steps). The start state is uniform in [-pi, pi] x [-1, 1]
+    from the env's generator, as gymnasium's np_random draws it."""
+
+    g, m, l, dt = 10.0, 1.0, 1.0, 0.05
+    max_speed, max_torque = 8.0, 2.0
+
+    def __init__(self, seed=None):
+        self._rng = np.random.default_rng(seed)
+        self.state = np.zeros(2)
+        self._t = 0
+
+    def _obs(self):
+        theta, thetadot = self.state
+        return np.array([np.cos(theta), np.sin(theta), thetadot],
+                        dtype=np.float32)
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        high = np.array([np.pi, 1.0])
+        self.state = self._rng.uniform(low=-high, high=high)
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, u):
+        th, thdot = self.state
+        g, m, l, dt = self.g, self.m, self.l, self.dt
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        angle = ((th + np.pi) % (2 * np.pi)) - np.pi
+        costs = angle ** 2 + 0.1 * thdot ** 2 + 0.001 * (u ** 2)
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th)
+                            + 3.0 / (m * l ** 2) * u) * dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * dt
+        self.state = np.array([newth, newthdot])
+        self._t += 1
+        return self._obs(), -costs, False, self._t >= PENDULUM_STEPS, {}
+
+
+class CueRecallEnv:
+    """tests/test_rl.py's memory task: step 0 shows a cue (+1 or -1 in
+    obs[0]); at the final step the action matching the cue earns +1. A
+    memoryless policy cannot beat 0.5."""
+
+    LEN = 4
+
+    def __init__(self, seed=0):
+        self._rng = np.random.default_rng(seed)
+        self._t = 0
+        self._cue = 1
+
+    def _obs(self):
+        o = np.zeros(3, dtype=np.float32)
+        if self._t == 0:
+            o[0] = float(self._cue)
+        o[1] = (self.LEN - self._t) / self.LEN
+        o[2] = 1.0 if self._t == self.LEN - 1 else 0.0
+        return o
+
+    def reset(self, *, seed=None, options=None):
+        self._t = 0
+        self._cue = 1 if self._rng.integers(2) else -1
+        return self._obs(), {}
+
+    def step(self, action):
+        reward, done = 0.0, False
+        if self._t == self.LEN - 1:
+            reward = 1.0 if int(action) == (1 if self._cue > 0 else 0) else 0.0
+            done = True
+        self._t += 1
+        return self._obs(), reward, done, False, {}
+
+
+class MatchContextEnv:
+    """tests/test_rl_extras.py's two-agent contextual bandit (a
+    MultiAgentEnv by its interface): each agent sees a one-hot context
+    and earns 1.0 for picking the hot index; episodes run 8 steps."""
+
+    agent_ids = ("a0", "a1")
+
+    def __init__(self, seed=0, horizon=8):
+        self.rng = np.random.default_rng(seed)
+        self.horizon = horizon
+        self.t = 0
+
+    def _obs(self):
+        out = {}
+        for aid in self.agent_ids:
+            ctx = np.zeros(3, dtype=np.float32)
+            ctx[self.rng.integers(0, 3)] = 1.0
+            out[aid] = ctx
+        self._current = out
+        return out
+
+    def reset(self):
+        self.t = 0
+        return self._obs(), {}
+
+    def step(self, action_dict):
+        rewards = {
+            aid: float(action_dict[aid] == int(np.argmax(self._current[aid])))
+            for aid in self.agent_ids
+        }
+        self.t += 1
+        done = self.t >= self.horizon
+        obs = self._obs() if not done else self._current
+        terms = {aid: done for aid in self.agent_ids}
+        terms["__all__"] = done
+        truncs = {aid: False for aid in self.agent_ids}
+        truncs["__all__"] = False
+        return obs, rewards, terms, truncs, {}
 
 
 def _rl_spec():
@@ -6651,6 +6809,855 @@ def phase_rl(device_name, smi):
     return {k: launches[k] + in_learners[k] for k in launches}
 
 
+# -- rl2: the RL stack's second half, SAC at published widths ---------------
+
+# SAC and CQL: Haarnoja et al. 2018, "Soft Actor-Critic Algorithms and
+# Applications", Table 1 (2 x 256 hidden, batch 256, lr 3e-4, tau
+# 0.005, gamma 0.99); TD3: Fujimoto et al. 2018 (400-300 hidden);
+# R2D2: Kapturowski et al. 2019's recurrent state of 512 (an LSTM there,
+# the port's GRU here); CQL: Kumar et al. 2020's 10 candidate actions.
+RL2_SAC_HIDDEN = (256, 256)
+RL2_TD3_HIDDEN = (400, 300)
+RL2_GRU = 512
+RL2_CQL_CANDIDATES = 10
+RL2_BATCH = 256
+RL2_LR = 3e-4
+RL2_TAU = 0.005
+RL2_GAMMA = 0.99
+RL2_SAC_STEPS = 400          # env steps and updates an iteration
+RL2_SAC_MAX_ITERS = 24
+RL2_SAC_ENOUGH = -400.0      # stop iterating once the best mean exceeds it
+# The gate of tests/test_rl_extras.py::test_sac_pendulum_improves: the
+# best mean return above -800 and at least 200 above the first
+# (random-action) iteration's; a random Pendulum policy returns about
+# -1,200 to -1,600 an episode.
+RL2_SAC_GATE, RL2_SAC_GAIN = -800.0, 200.0
+RL2_SAC_BUDGET_S = 90.0      # no new SAC iteration once it took this long
+RL2_WARM_UPDATES = 3         # CPU updates before the card-vs-CPU update
+RL2_CQL_ROWS = 2048
+RL2_ITERS = 2                # iterations of each other algorithm
+
+
+def _rl2_transitions(n, seed):
+    """n Pendulum transitions under uniform random torques, with the
+    normalized actions the runners store."""
+    env = PendulumEnv(seed)
+    obs, _ = env.reset()
+    rng = np.random.default_rng(seed)
+    out = {k: [] for k in ("obs", "actions", "rewards", "next_obs",
+                           "dones")}
+    for _ in range(n):
+        a = rng.uniform(-1.0, 1.0, 1).astype(np.float32)
+        nxt, r, term, trunc, _ = env.step(2.0 * a.astype(np.float64))
+        for k, v in (("obs", obs), ("actions", a), ("rewards", r),
+                     ("next_obs", nxt), ("dones", float(term))):
+            out[k].append(v)
+        obs = env.reset()[0] if term or trunc else nxt
+    return {k: np.asarray(np.stack(v) if k in ("obs", "actions", "next_obs")
+                          else v, np.float32) for k, v in out.items()}
+
+
+def _rl2_windows(n, T, seed, state_dim):
+    """n CueRecallEnv windows of T steps under random actions, with the
+    zero state each starts from and returns-to-go for PPO's fields."""
+    env = CueRecallEnv(seed)
+    rng = np.random.default_rng(seed)
+    obs = env.reset()[0]
+    w = {k: [] for k in ("obs", "actions", "rewards", "dones")}
+    for _ in range(n * T):
+        a = int(rng.integers(2))
+        nxt, r, term, _, _ = env.step(a)
+        w["obs"].append(obs)
+        w["actions"].append(a)
+        w["rewards"].append(r)
+        w["dones"].append(float(term))
+        obs = env.reset()[0] if term else nxt
+    b = {"obs": np.asarray(w["obs"], np.float32).reshape(n, T, 3),
+         "actions": np.asarray(w["actions"], np.int32).reshape(n, T),
+         "rewards": np.asarray(w["rewards"], np.float32).reshape(n, T),
+         "dones": np.asarray(w["dones"], np.float32).reshape(n, T),
+         "state0": np.zeros((n, state_dim), np.float32)}
+    b["logp"] = np.full((n, T), -np.log(2.0), np.float32)
+    b["advantages"] = rng.normal(size=(n, T)).astype(np.float32)
+    b["returns"] = rng.normal(size=(n, T)).astype(np.float32)
+    return b
+
+
+def _rl2_learner_state(learner):
+    from ray_tpu_torch.rl.core import convert
+
+    return {"params": learner.get_weights(),
+            "opt_state": convert.adam_to_jax(
+                learner.optimizer, convert.flatten(learner.module.tree()))}
+
+
+def _rl2_load_learner(learner, state):
+    from ray_tpu_torch.rl.core import convert
+
+    learner.set_weights(state["params"])
+    convert.load_adam(learner.optimizer,
+                      convert.flatten(learner.module.tree()),
+                      state["opt_state"])
+
+
+def _rl2_cases():
+    """Each checked update: (name, make_state(device), update(state,
+    batch, draws) -> metrics, to_jax(state), load(state, jax_state),
+    batch (numpy), draws() -> CPU tensors)."""
+    import torch
+
+    from ray_tpu_torch.rl import offline
+    from ray_tpu_torch.rl.algorithms import cql, r2d2, recurrent_ppo, sac, td3
+    from ray_tpu_torch.rl.core import convert
+    from ray_tpu_torch.rl.core.learner import Learner, adam, step
+    from ray_tpu_torch.rl.core.rl_module import (ContinuousModuleSpec,
+                                                 ContinuousPolicyModule,
+                                                 DiscretePolicyModule,
+                                                 RecurrentModuleSpec,
+                                                 RecurrentPolicyModule,
+                                                 RecurrentQNetworkModule,
+                                                 RLModuleSpec)
+
+    gen = torch.Generator().manual_seed(SEED)
+    B, K = RL2_BATCH, RL2_CQL_CANDIDATES
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def cont(hidden):
+        return ContinuousModuleSpec(3, 1, -2.0, 2.0, hidden)
+
+    def sac_state(device, hidden=RL2_SAC_HIDDEN):
+        return sac.init_sac_state(ContinuousPolicyModule(cont(hidden)).init(
+            SEED).to(device), RL2_LR)
+
+    def td3_state(device):
+        return td3.init_td3_state(td3.DeterministicPolicyModule(
+            cont(RL2_TD3_HIDDEN)).init(SEED).to(device), RL2_LR)
+
+    rspec = RecurrentModuleSpec(3, 2, state_dim=RL2_GRU, hidden=(RL2_GRU,))
+    r2d2_loss = r2d2.r2d2_update_fn(RL2_GAMMA, 2)
+
+    def r2d2_state(device):
+        m = RecurrentQNetworkModule(rspec).init(SEED).to(device)
+        return {"module": m,
+                "target": RecurrentQNetworkModule(rspec).init(SEED + 1).to(
+                    device).requires_grad_(False),
+                "opt": adam(m.parameters(), RL2_LR)}
+
+    def r2d2_update(st, batch, _):
+        loss, metrics = r2d2_loss(st["module"], st["target"], batch)
+        step(st["opt"], st["module"].parameters(), loss, r2d2.GRAD_CLIP)
+        return metrics
+
+    def r2d2_to_jax(st):
+        return {"params": st["module"].get_weights(),
+                "target": st["target"].get_weights(),
+                "opt_state": convert.adam_to_jax(
+                    st["opt"], convert.flatten(st["module"].tree()))}
+
+    def r2d2_load(st, js):
+        st["module"].set_weights(js["params"])
+        st["target"].set_weights(js["target"])
+        convert.load_adam(st["opt"], convert.flatten(st["module"].tree()),
+                          js["opt_state"])
+
+    def learner(module_cls, spec, loss):
+        return lambda device: Learner(module_cls(spec), loss, seed=SEED,
+                                      lr=RL2_LR, device=device)
+
+    def learner_update(lr, batch, _):
+        return {k: torch.as_tensor(v) for k, v in
+                lr.update_from_batch(batch).items()}
+
+    pspec = RecurrentModuleSpec(3, 2, state_dim=RL2_GRU // 2, hidden=(64,))
+    dspec = RLModuleSpec(3, 2, RL2_SAC_HIDDEN)
+    flat = _rl2_transitions(B, SEED + 5)
+    windows = _rl2_windows(32, 16, SEED + 6, RL2_GRU)
+    seqs = _rl2_windows(8, 32, SEED + 7, RL2_GRU // 2)
+    off = {"obs": seqs["obs"].reshape(-1, 3)[:B],
+           "actions": seqs["actions"].reshape(-1)[:B],
+           "returns": seqs["returns"].reshape(-1)[:B]}
+    sac_update = sac.make_sac_update(RL2_GAMMA, RL2_TAU, -1.0)
+    cql_update = cql.make_cql_update(RL2_GAMMA, RL2_TAU, -1.0, 5.0, K)
+    td3_update = td3.make_td3_update(RL2_GAMMA, RL2_TAU, 0.2, 0.5, 2)
+    return [
+        ("sac", sac_state, sac_update, sac.sac_state_to_jax,
+         sac.load_sac_state, flat,
+         lambda: {"next": randn(B, 1), "pi": randn(B, 1)}),
+        ("cql", sac_state, cql_update, sac.sac_state_to_jax,
+         sac.load_sac_state, flat,
+         lambda: {"next": randn(B, 1), "pi": randn(B, 1),
+                  "rand": torch.rand((K, B, 1), generator=gen) * 2 - 1,
+                  "cur": randn(K, B, 1), "nxt": randn(K, B, 1)}),
+        ("td3", td3_state, td3_update, td3.td3_state_to_jax,
+         td3.load_td3_state, flat, lambda: randn(B, 1)),
+        ("r2d2", r2d2_state, r2d2_update, r2d2_to_jax, r2d2_load,
+         {k: windows[k] for k in ("obs", "actions", "rewards", "dones",
+                                  "state0")}, lambda: None),
+        ("recurrent_ppo", learner(RecurrentPolicyModule, pspec,
+                                  recurrent_ppo.recurrent_ppo_loss),
+         learner_update, _rl2_learner_state, _rl2_load_learner, seqs,
+         lambda: None),
+        ("bc", learner(DiscretePolicyModule, dspec, offline.bc_loss),
+         learner_update, _rl2_learner_state, _rl2_load_learner,
+         {k: off[k] for k in ("obs", "actions")}, lambda: None),
+        ("marwil", learner(DiscretePolicyModule, dspec,
+                           offline.marwil_loss(1.0)),
+         learner_update, _rl2_learner_state, _rl2_load_learner, off,
+         lambda: None),
+    ]
+
+
+def _rl2_moved(draws, device):
+    import torch
+
+    if draws is None or isinstance(draws, torch.Tensor):
+        return None if draws is None else draws.to(device)
+    return {k: v.to(device) for k, v in draws.items()}
+
+
+def _rl2_parity() -> dict:
+    """Each update of the second half on the card against the CPU, f32
+    with TF32 off, from the same state on the same batch and draws. From
+    the initial state: the metrics (losses) and every gradient, read as
+    10 x Adam's first moment after its first step from zero (each
+    optimizer's, the actor's, the critics' and the temperature's
+    apart). Then the CPU state after RL2_WARM_UPDATES more updates loads
+    into the card and one update on each gives the new parameters (and
+    targets): from warm moments, so no element's step hangs on the sign
+    of a gradient at rounding level, as Adam's first step does."""
+    import torch
+
+    from ray_tpu_torch.rl.core import convert
+    from ray_tpu_torch.rl.core.learner import to_tensors
+
+    res = {}
+    for name, make, update, to_jax, load, batch, draws in _rl2_cases():
+        cpu, card = make("cpu"), make("cuda")
+        load(card, to_jax(cpu))
+        tb = {d: to_tensors(batch, d) for d in ("cpu", "cuda")}
+        d = draws()
+        mc = update(cpu, tb["cpu"], d)
+        mg = update(card, tb["cuda"], _rl2_moved(d, "cuda"))
+        sc, sg = to_jax(cpu), to_jax(card)
+        out = {"losses": {k: _rl_close(mg[k], mc[k], RL_PARITY_TOL)
+                          for k in mc}}
+        grads = {}
+        for part in sc:
+            adam = convert.find_adam(sc[part])
+            if adam is None:
+                continue
+            mine = convert.flatten(convert.find_adam(sg[part])["mu"])
+            for k, v in convert.flatten(adam["mu"]).items():
+                grads[f"{part}.{k}"] = _rl_close(
+                    torch.as_tensor(np.asarray(mine[k]) * 10.0),
+                    torch.as_tensor(np.asarray(v) * 10.0), RL_PARITY_TOL)
+        out["grads"] = grads
+        for i in range(RL2_WARM_UPDATES):
+            update(cpu, tb["cpu"], draws())
+        load(card, to_jax(cpu))
+        d = draws()
+        update(cpu, tb["cpu"], d)
+        update(card, tb["cuda"], _rl2_moved(d, "cuda"))
+        sc, sg = to_jax(cpu), to_jax(card)
+        out["params"] = {
+            f"{part}.{k}": _rl_close(
+                torch.as_tensor(np.asarray(convert.flatten(sg[part])[k])),
+                torch.as_tensor(np.asarray(v)), RL_PARITY_TOL)
+            for part in ("params", "target") if part in sc
+            for k, v in convert.flatten(sc[part]).items()}
+        res[name] = out
+    return res
+
+
+def _rl2_graph_check(n=8) -> dict:
+    """SAC's update replayed as a CUDA graph (GraphedUpdates, the path
+    SAC takes on the card) against the same n updates run eagerly, from
+    one state on the card, on the same minibatches and draws: every
+    leaf of the two states afterwards and the last metrics."""
+    import torch
+
+    from ray_tpu_torch.rl.algorithms import sac
+    from ray_tpu_torch.rl.core import convert
+    from ray_tpu_torch.rl.core.learner import to_tensors
+    from ray_tpu_torch.rl.core.rl_module import (ContinuousModuleSpec,
+                                                 ContinuousPolicyModule)
+
+    spec = ContinuousModuleSpec(3, 1, -2.0, 2.0, RL2_SAC_HIDDEN)
+    update = sac.make_sac_update(RL2_GAMMA, RL2_TAU, -1.0)
+    states = [sac.init_sac_state(ContinuousPolicyModule(spec).init(
+        SEED).to("cuda"), RL2_LR) for _ in range(2)]
+    flat = _rl2_transitions(RL2_BATCH * n, SEED + 8)
+    batches = to_tensors({k: v.reshape(n, RL2_BATCH, *v.shape[1:])
+                          for k, v in flat.items()}, "cuda")
+    noise = torch.randn((n, 2, RL2_BATCH, 1), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+
+    def one(state):
+        return lambda b, z: update(state, b, {"next": z[0], "pi": z[1]})
+
+    eager = one(states[0])
+    for i in range(n):
+        m_eager = eager({k: v[i] for k, v in batches.items()}, noise[i])
+    m_graph = sac.GraphedUpdates(one(states[1])).run(batches, noise)
+    a, b = (convert.flatten(sac.sac_state_to_jax(st)) for st in states)
+    err = max(float(np.abs(np.asarray(a[k], np.float64)
+                           - np.asarray(b[k], np.float64)).max()) for k in a)
+    return {"updates": n, "max_abs_err": err,
+            "metrics_equal": all(torch.equal(m_eager[k], m_graph[k])
+                                 for k in m_eager)}
+
+
+def _rl2_bad(parity) -> dict:
+    return {f"{name}.{kind}.{k}": v for name, out in parity.items()
+            for kind in ("losses", "grads", "params")
+            for k, v in out[kind].items() if not v["ok"]}
+
+
+def _rl2_devices(*objs) -> list:
+    """Where the modules', tensors' and optimizers' tensors live."""
+    import torch
+
+    out = set()
+    for o in objs:
+        if isinstance(o, torch.nn.Module):
+            out |= {str(p.device) for p in o.parameters()}
+        elif isinstance(o, torch.Tensor):
+            out.add(str(o.device))
+        elif isinstance(o, torch.optim.Optimizer):
+            out |= {str(v.device) for st in o.state.values()
+                    for v in st.values() if torch.is_tensor(v) and v.dim()}
+    return sorted(out)
+
+
+def _rl2_state_devices(state) -> list:
+    return _rl2_devices(*[v for v in state.values()
+                          if not isinstance(v, int)])
+
+
+def _finite(metrics) -> bool:
+    return bool(metrics) and all(np.isfinite(v) for v in metrics.values())
+
+
+def _learner_metrics(result) -> dict:
+    return {k: v for k, v in result.items() if k.startswith("learner/")
+            and not isinstance(v, (list, dict))}
+
+
+def _rl2_sac(rt) -> tuple:
+    """SAC at published widths on the numpy Pendulum: one CPU runner, the
+    update on the card in this process; RL2_SAC_STEPS env steps and
+    updates an iteration."""
+    import torch
+
+    from ray_tpu_torch.rl import SACConfig
+
+    algo = (SACConfig(hidden=RL2_SAC_HIDDEN)
+            .environment(PendulumEnv, obs_dim=3, action_dim=1,
+                         action_low=-2.0, action_high=2.0)
+            .env_runners(num_env_runners=1, rollout_length=RL2_SAC_STEPS)
+            .training(lr=RL2_LR, gamma=RL2_GAMMA, tau=RL2_TAU,
+                      batch_size=RL2_BATCH,
+                      updates_per_iteration=RL2_SAC_STEPS,
+                      warmup_steps=RL2_SAC_STEPS)
+            .build())
+    walls = []
+    run_updates = algo._run_updates
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = run_updates(n)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return m
+
+    algo._run_updates = timed
+    torch.cuda.reset_peak_memory_stats()
+    iters = []
+    try:
+        start = time.perf_counter()
+        for i in range(RL2_SAC_MAX_ITERS):
+            t0 = time.perf_counter()
+            r = algo.train()
+            iters.append({"iteration": r["training_iteration"],
+                          "seconds": time.perf_counter() - t0,
+                          "episode_return_mean": r["episode_return_mean"],
+                          "episodes_total": r["episodes_total"],
+                          "losses": _learner_metrics(r)})
+            print(f"rl2: SAC iteration {i + 1}: "
+                  f"{iters[-1]['seconds']:.2f} s, mean return "
+                  f"{r['episode_return_mean']:.1f}", file=sys.stderr,
+                  flush=True)
+            best = max((it["episode_return_mean"] for it in iters[1:]),
+                       default=-1e9)
+            if best > RL2_SAC_ENOUGH or (
+                    time.perf_counter() - start >= RL2_SAC_BUDGET_S):
+                break
+        peak = torch.cuda.max_memory_allocated()
+        devices = _rl2_state_devices(algo.state)
+        n = len(algo.buffer)
+        keep = slice(max(0, n - RL2_CQL_ROWS), n)
+        transitions = {k: getattr(algo.buffer, k)[keep].copy()
+                       for k in ("obs", "actions", "rewards", "next_obs",
+                                 "dones")}
+    finally:
+        algo.stop()
+    per_update = [w / RL2_SAC_STEPS for w in walls]
+    return {
+        "hidden": list(RL2_SAC_HIDDEN), "batch": RL2_BATCH, "lr": RL2_LR,
+        "tau": RL2_TAU, "gamma": RL2_GAMMA, "iterations": iters,
+        "first_mean_return": iters[0]["episode_return_mean"],
+        "best_mean_return": max((it["episode_return_mean"]
+                                 for it in iters[1:]), default=None),
+        "update_ms_median": _med(per_update) * 1e3 if walls else None,
+        "update_ms_each_iteration": [x * 1e3 for x in per_update],
+        "samples_per_s": (RL2_BATCH * RL2_SAC_STEPS * len(walls)
+                          / sum(walls)) if walls else None,
+        "peak_memory": peak, "state_devices": devices,
+        "finite": all(_finite(it["losses"]) for it in iters[1:]),
+    }, transitions
+
+
+def _rl2_td3(rt) -> dict:
+    from ray_tpu_torch.rl import DDPGConfig, TD3Config
+
+    out = {}
+    for name, cfg in (("td3", TD3Config()), ("ddpg", DDPGConfig())):
+        cfg.hidden = RL2_TD3_HIDDEN
+        algo = (cfg.environment(PendulumEnv, obs_dim=3, action_dim=1,
+                                action_low=-2.0, action_high=2.0)
+                .env_runners(num_env_runners=1, rollout_length=200)
+                .training(batch_size=RL2_BATCH, updates_per_iteration=64,
+                          warmup_steps=200)
+                .build())
+        try:
+            rs = [algo.train() for _ in range(RL2_ITERS)]
+            out[name] = {"losses": [_learner_metrics(r) for r in rs],
+                         "policy_delay": cfg.policy_delay,
+                         "step": algo.state["step"],
+                         "state_devices": _rl2_state_devices(algo.state)}
+        finally:
+            algo.stop()
+        out[name]["finite"] = all(_finite(m) for m in out[name]["losses"])
+    return out
+
+
+def _rl2_cql(rt, transitions) -> dict:
+    """CQL offline from SAC's own transitions through episodes_to_dataset
+    and train_on_dataset, two epochs."""
+    from ray_tpu_torch.rl import CQLConfig, episodes_to_dataset
+
+    ds = episodes_to_dataset([transitions])
+    algo = (CQLConfig(hidden=RL2_SAC_HIDDEN)
+            .module(obs_dim=3, action_dim=1, action_low=-2.0,
+                    action_high=2.0)
+            .training(lr=RL2_LR, minibatch_size=RL2_BATCH,
+                      num_candidate_actions=RL2_CQL_CANDIDATES)
+            .build())
+    t0 = time.perf_counter()
+    m = algo.train_on_dataset(ds, num_epochs=2)
+    return {"rows": ds.count(), "seconds": time.perf_counter() - t0,
+            "metrics": m, "finite": _finite(m),
+            "state_devices": _rl2_state_devices(algo.state)}
+
+
+def _rl2_recurrent_ppo(rt) -> dict:
+    from ray_tpu_torch.rl import RecurrentPPOConfig
+
+    algo = (RecurrentPPOConfig(state_dim=RL2_GRU // 2)
+            .environment(CueRecallEnv, obs_dim=3, num_actions=2)
+            .env_runners(num_env_runners=2, rollout_length=128)
+            .training(lr=5e-3, num_epochs=4)
+            .build())
+    try:
+        rs = [algo.train() for _ in range(RL2_ITERS)]
+        info = algo.learner_group.foreach_learner(_rl_learner_info)[0]
+    finally:
+        algo.stop()
+    losses = [_learner_metrics(r) for r in rs]
+    return {"losses": losses, "learner": info,
+            "mean_returns": [r["episode_return_mean"] for r in rs],
+            "finite": all(_finite(m) for m in losses)}
+
+
+def _rl2_r2d2(rt) -> dict:
+    from ray_tpu_torch.rl import R2D2Config
+
+    algo = (R2D2Config(state_dim=RL2_GRU, hidden=(RL2_GRU,))
+            .environment(CueRecallEnv, obs_dim=3, num_actions=2)
+            .env_runners(num_env_runners=2, window_length=16)
+            .training(learning_starts=4, updates_per_iteration=16,
+                      train_batch_size=16, burn_in=2)
+            .build())
+    try:
+        rs = [algo.train() for _ in range(RL2_ITERS)]
+        devices = _rl2_devices(algo.module, algo.target, algo.optimizer)
+    finally:
+        algo.stop()
+    losses = [_learner_metrics(r) for r in rs]
+    return {"losses": losses, "state_devices": devices,
+            "windows": rs[-1]["buffer_windows"],
+            "finite": all(_finite(m) for m in losses[1:])}
+
+
+def _rl2_apex(rt) -> dict:
+    """Ape-X over the port's DQN: the Nature CNN Q-network on FrameSideEnv
+    frames (DQN, in both packages, gives image observations the conv
+    Q-network, not the dueling head), 2 CPU runners on the epsilon
+    ladder, 2 replay shard actors, the learner and target net on the
+    card."""
+    from ray_tpu_torch.models.conv import ATARI_FILTERS
+    from ray_tpu_torch.rl import APEXConfig
+
+    cfg = APEXConfig()
+    cfg.num_env_runners = 2
+    algo = (cfg.environment(lambda: FrameSideEnv(), obs_shape=RL_FRAME,
+                            num_actions=RL_ACTIONS,
+                            conv_filters=ATARI_FILTERS)
+            .env_runners(rollout_length=256)
+            .training(train_batch_size=32, updates_per_iteration=16,
+                      learning_starts=512, buffer_capacity=2048)
+            .build())
+    try:
+        rs = []
+        for _ in range(6):
+            rs.append(algo.train())
+            if len(rs) >= 2 and _learner_metrics(rs[-1]):
+                break
+        info = algo.learner_group.foreach_learner(_rl_learner_info)[0]
+        target = _rl2_devices(algo._target_net, algo._online_net)
+        sizes = rt.get([s.size.remote() for s in algo.shards], timeout=60)
+    finally:
+        algo.stop()
+    losses = _learner_metrics(rs[-1])
+    return {"iterations": len(rs), "losses": losses, "learner": info,
+            "target_net_devices": target, "shard_sizes": sizes,
+            "epsilons": rs[-1]["epsilon"], "finite": _finite(losses)}
+
+
+def _rl2_multi_agent(rt) -> tuple:
+    from ray_tpu_torch.rl import MultiAgentPPOConfig, RLModuleSpec
+
+    spec = RLModuleSpec(obs_dim=3, num_actions=3)
+    algo = (MultiAgentPPOConfig()
+            .environment(lambda: MatchContextEnv(seed=SEED))
+            .multi_agent(policies={"p0": spec, "p1": spec},
+                         policy_mapping_fn=lambda aid: ("p0" if aid == "a0"
+                                                        else "p1"))
+            .env_runners(num_env_runners=2, rollout_length=64)
+            .training(lr=1e-2, num_epochs=4, minibatch_size=64)
+            .build())
+    try:
+        rs = [algo.train() for _ in range(RL2_ITERS)]
+        devices = _rl2_devices(*[x for lr in algo.learners.values()
+                                 for x in (lr.module, lr.optimizer)])
+        rollouts = rt.get([r.sample.remote() for r in algo.env_runners],
+                          timeout=300)
+    finally:
+        algo.stop()
+    losses = [_learner_metrics(r) for r in rs]
+    trajs = [t for r in rollouts for t in r["p0"] + r["p1"]]
+    return {"losses": losses, "state_devices": devices,
+            "mean_returns": [r["episode_return_mean"] for r in rs],
+            "finite": all(_finite(m) for m in losses)}, trajs
+
+
+def _rl2_offline(rt, trajs) -> dict:
+    """BC and MARWIL on the card from a dataset of multi-agent PPO's
+    rollouts (returns-to-go at gamma 0.99)."""
+    from ray_tpu_torch.rl import (BCConfig, MARWILConfig,
+                                  episodes_to_dataset)
+
+    ds = episodes_to_dataset(trajs, gamma=RL2_GAMMA)
+    out = {"rows": ds.count()}
+    for name, cfg in (("bc", BCConfig()), ("marwil", MARWILConfig())):
+        algo = cfg.module(obs_dim=3, num_actions=3).training(
+            minibatch_size=64).build()
+        m = algo.train_on_dataset(ds, num_epochs=3)
+        out[name] = {"metrics": m, "finite": _finite(m),
+                     "state_devices": _rl2_devices(algo.learner.module,
+                                                   algo.learner.optimizer)}
+    return out
+
+
+def phase_rl2(device_name, smi):
+    import gc
+
+    import torch
+
+    import ray_tpu_torch as rt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = _train_launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        parity = _rl2_parity()
+        graph = _rl2_graph_check()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    parity_s = time.perf_counter() - t0
+    seconds = {}
+    rt.init(num_cpus=8, object_store_memory=RL_STORE_BYTES)
+    try:
+        t0 = time.perf_counter()
+        sac, transitions = _rl2_sac(rt)
+        seconds["sac"] = time.perf_counter() - t0
+        runs = {}
+        for name, fn, args in (("td3", _rl2_td3, ()),
+                               ("cql", _rl2_cql, (transitions,)),
+                               ("recurrent_ppo", _rl2_recurrent_ppo, ()),
+                               ("r2d2", _rl2_r2d2, ()),
+                               ("apex", _rl2_apex, ())):
+            t0 = time.perf_counter()
+            runs[name] = fn(rt, *args)
+            seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs["multi_agent"], trajs = _rl2_multi_agent(rt)
+        seconds["multi_agent"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs["offline"] = _rl2_offline(rt, trajs)
+        seconds["offline"] = time.perf_counter() - t0
+        _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after the rl2 phase")
+    finally:
+        rt.shutdown()
+    left, _ = _stop_runtime()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    in_learners = {k: sum(runs[x]["learner"]["launches"][k]
+                          for x in ("recurrent_ppo", "apex"))
+                   for k in counters}
+    rec = {"phase": "rl2", "card": smi,
+           "parity": {"batch": RL2_BATCH, "tol": RL_PARITY_TOL,
+                      "seconds": parity_s,
+                      "worst": {n: max(v["max_abs_err"]
+                                       for kind in ("losses", "grads",
+                                                    "params")
+                                       for v in out[kind].values())
+                                for n, out in parity.items()},
+                      "graph_against_eager": graph},
+           "sac": sac, **runs, "seconds": seconds,
+           "launches_driver": launches, "launches_learners": in_learners,
+           "procs_left": left}
+    emit(rec)
+    print(json.dumps({"rl2_numbers": {
+        "card": smi, "sac_update_ms_median": sac["update_ms_median"],
+        "sac_samples_per_s": sac["samples_per_s"],
+        "sac_peak_memory": sac["peak_memory"],
+        "sac_first_mean_return": sac["first_mean_return"],
+        "sac_best_mean_return": sac["best_mean_return"],
+        "sac_iterations": len(sac["iterations"]),
+        "seconds": seconds}}), flush=True)
+    bad = _rl2_bad(parity)
+    check(not bad, f"card against CPU beyond {RL_PARITY_TOL}: {bad}")
+    check(graph["max_abs_err"] <= RL_PARITY_TOL,
+          f"SAC's graphed updates against eager ones: {graph}")
+    best = sac["best_mean_return"]
+    check(best is not None and best > RL2_SAC_GATE
+          and best >= sac["first_mean_return"] + RL2_SAC_GAIN,
+          f"SAC's best mean return {best} is not above {RL2_SAC_GATE} and "
+          f"{RL2_SAC_GAIN} above the first iteration's "
+          f"{sac['first_mean_return']}")
+    check(sac["finite"], "SAC losses not finite")
+    on_card = {"sac": sac["state_devices"],
+               "td3": runs["td3"]["td3"]["state_devices"],
+               "ddpg": runs["td3"]["ddpg"]["state_devices"],
+               "cql": runs["cql"]["state_devices"],
+               "r2d2": runs["r2d2"]["state_devices"],
+               "recurrent_ppo": runs["recurrent_ppo"]["learner"][
+                   "tensor_devices"],
+               "apex": runs["apex"]["learner"]["tensor_devices"]
+               + runs["apex"]["target_net_devices"],
+               "multi_agent": runs["multi_agent"]["state_devices"],
+               "bc": runs["offline"]["bc"]["state_devices"],
+               "marwil": runs["offline"]["marwil"]["state_devices"]}
+    check(all(devs and all(d.startswith("cuda") for d in devs)
+              for devs in on_card.values()),
+          f"learner or target tensors off the card: {on_card}")
+    finite = {"td3": runs["td3"]["td3"]["finite"],
+              "ddpg": runs["td3"]["ddpg"]["finite"],
+              "cql": runs["cql"]["finite"],
+              "recurrent_ppo": runs["recurrent_ppo"]["finite"],
+              "r2d2": runs["r2d2"]["finite"], "apex": runs["apex"]["finite"],
+              "multi_agent": runs["multi_agent"]["finite"],
+              "bc": runs["offline"]["bc"]["finite"],
+              "marwil": runs["offline"]["marwil"]["finite"]}
+    check(all(finite.values()), f"losses not finite: {finite}")
+    check(runs["td3"]["ddpg"]["policy_delay"] == 1
+          and runs["td3"]["td3"]["policy_delay"] == 2,
+          "the DDPG preset is not TD3 without the delay")
+    check(all(s > 0 for s in runs["apex"]["shard_sizes"]),
+          f"Ape-X shards {runs['apex']['shard_sizes']}")
+    check(not any(launches.values()) and not any(in_learners.values()),
+          f"kernels launched on the rl2 path: {launches}, {in_learners}")
+    check(not left, f"processes after the phase: {left}")
+    return {k: launches[k] + in_learners[k] for k in launches}
+
+
+# -- workflow: a durable workflow with a GPU step, and a virtual actor ----
+
+VA_MAIN = r"""
+import sys
+
+from ray_tpu_torch import workflow
+
+
+@workflow.virtual_actor
+class Ledger:
+    def __init__(self):
+        self.entries = []
+
+    def append(self, x):
+        self.entries.append(x)
+        return len(self.entries)
+
+    @workflow.readonly
+    def read(self):
+        return list(self.entries)
+
+
+storage, actor_id, value = sys.argv[1:4]
+ledger = Ledger.get_or_create(actor_id, storage=storage)
+n = ledger.append(value)
+print("LEDGER", n, ledger.seq, ",".join(ledger.read()), flush=True)
+"""
+
+
+def _wf_rollouts(seed):
+    """Expert rows of MatchContextEnv's agent a0 (the hot index)."""
+    env = MatchContextEnv(seed=seed)
+    obs, _ = env.reset()
+    rows = {"obs": [], "actions": []}
+    for _ in range(512):
+        a = {aid: int(np.argmax(o)) for aid, o in obs.items()}
+        rows["obs"].append(obs["a0"])
+        rows["actions"].append(a["a0"])
+        obs, _, terms, _, _ = env.step(a)
+        if terms["__all__"]:
+            obs, _ = env.reset()
+    return {"obs": np.stack(rows["obs"]),
+            "actions": np.asarray(rows["actions"], np.int32)}
+
+
+def _wf_bc_on_card(batch, counter):
+    """The workflow's GPU step: counts its runs on disk, then BC updates
+    on the card it was granted."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch.rl import BCConfig
+
+    n = int(open(counter).read()) + 1 if os.path.exists(counter) else 1
+    with open(counter, "w") as f:
+        f.write(str(n))
+    bc = BCConfig().module(obs_dim=3, num_actions=3).training(
+        lr=5e-3, minibatch_size=128).build()
+    m = bc.train_on_batch(batch, num_epochs=5)
+    return {"metrics": m, "device": str(bc.learner.device),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "launches": {k: fn.launches
+                         for k, fn in _train_launch_counters().items()},
+            "actions": bc.compute_actions(
+                np.eye(3, dtype=np.float32)).tolist(),
+            "cuda_params": all(p.is_cuda
+                               for p in bc.learner.module.parameters())}
+
+
+def _wf_report(result, flag):
+    """The last step: fails on its first run, then passes the GPU step's
+    result through."""
+    import os
+
+    if not os.path.exists(flag):
+        open(flag, "w").close()
+        raise RuntimeError("the report step fails once")
+    return result
+
+
+def phase_workflow(device_name):
+    import os
+    import subprocess
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.dag import InputNode
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wf_")
+    storage = os.path.join(tmp, "store")
+    counter, flag = os.path.join(tmp, "gpu_runs"), os.path.join(tmp, "flag")
+    rt.init(num_cpus=4)
+    try:
+        data = rt.remote(_wf_rollouts)
+        gpu = rt.remote(num_gpus=1)(_wf_bc_on_card)
+        report = rt.remote(_wf_report)
+        with InputNode() as inp:
+            dag = report.bind(gpu.bind(data.bind(inp), counter), flag)
+        t0 = time.perf_counter()
+        first_error = None
+        try:
+            workflow.run(dag, SEED, workflow_id="bc", storage=storage,
+                         max_step_retries=0)
+        except workflow.WorkflowError as e:
+            first_error = str(e)
+        status_after_failure = workflow.get_status("bc", storage=storage)
+        runs_after_failure = int(open(counter).read())
+        out = workflow.resume("bc", storage=storage, max_step_retries=0)
+        wall = time.perf_counter() - t0
+        runs = int(open(counter).read())
+        status = workflow.get_status("bc", storage=storage)
+        steps = sorted(os.listdir(os.path.join(storage, "bc", "steps")))
+        _wait_gpu(rt, 1.0, "the GPU was not back at 1.0 after the workflow")
+    finally:
+        rt.shutdown()
+    left, _ = _stop_runtime()
+    script = os.path.join(tmp, "ledger.py")
+    with open(script, "w") as f:
+        f.write(VA_MAIN)
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(
+        os.path.abspath(__file__))}
+    lines = []
+    for value in ("first", "second"):
+        p = subprocess.run([sys.executable, script, storage, "ledger", value],
+                           capture_output=True, text=True, timeout=120,
+                           env=env)
+        check(p.returncode == 0, f"ledger driver failed: {p.stderr[-2000:]}")
+        lines.append(next(ln for ln in p.stdout.splitlines()
+                          if ln.startswith("LEDGER")))
+    rec = {"phase": "workflow", "first_error": first_error,
+           "status_after_failure": status_after_failure,
+           "gpu_runs_after_failure": runs_after_failure,
+           "gpu_runs": runs, "status": status, "steps": steps,
+           "result": out, "seconds": wall, "ledger": lines,
+           "procs_left": left}
+    emit(rec)
+    check(first_error is not None and "fails once" in first_error
+          and status_after_failure == "FAILED",
+          f"the first run did not fail at its last step: {rec}")
+    check(runs_after_failure == 1 and runs == 1,
+          f"the GPU step ran {runs} times across the resume")
+    check(status == "SUCCEEDED" and len(steps) == 3, f"workflow: {rec}")
+    check(out["device"].startswith("cuda") and out["cuda_params"]
+          and out["visible"] is not None,
+          f"the GPU step did not train on a granted card: {out}")
+    check(_finite(out["metrics"]) and out["actions"] == [0, 1, 2],
+          f"BC on the card: {out['metrics']}, {out['actions']}")
+    check(not any(out["launches"].values()),
+          f"kernels launched in the workflow's GPU step: {out['launches']}")
+    check(lines == ["LEDGER 1 1 first", "LEDGER 2 2 first,second"],
+          f"the virtual actor across two drivers: {lines}")
+    check(not left, f"processes after the phase: {left}")
+    return out["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -6701,6 +7708,8 @@ def main() -> int:
     serve_tp_launches = run(phase_serve_tp, slice_rec["engine_step_ms"],
                             name)
     rl_launches = run(phase_rl, name, smi)
+    rl2_launches = run(phase_rl2, name, smi)
+    workflow_launches = run(phase_workflow, name)
     emit({"phase": "timing", "seconds": seconds})
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "ray_tpu") or m.startswith(("jax.",
@@ -6777,6 +7786,10 @@ def main() -> int:
         # The rl path runs no kernel of these five (convolutions and
         # dense layers only); phase_rl checked its count is 0.
         r["launches_rl"] = rl_launches[r["name"]]
+        # Nor do the second half's paths (MLPs, the GRU, the Nature CNN)
+        # or the workflow's BC step: phase_rl2 and phase_workflow checked.
+        r["launches_rl2"] = rl2_launches[r["name"]]
+        r["launches_workflow"] = workflow_launches[r["name"]]
         r["at_moe_train_shape"] = moe["kernels"][r["name"]]
         r["at_train_dcn_shape"] = dcn["kernels_at_dp_shape"][r["name"]]
     missing = [r["name"] for r in records

@@ -3,16 +3,12 @@ the card (the port of ray_tpu/rl).
 
 The new-API-stack shape: Algorithm / Learner / LearnerGroup / RLModule /
 EnvRunner. Modules are `nn.Module`s whose weights cross actors as the
-JAX package's numpy trees; env runners sample on the CPU; learners
-compute on the card unless the caller asks for the CPU, and several
-learners sync gradients over the DCN group.
-
-This slice holds PPO and A2C, IMPALA, APPO and the DQN family. SAC,
-TD3/DDPG, CQL, R2D2, recurrent PPO, Ape-X, multi-agent and offline RL
-are ROADMAP item A7b: their names raise NotImplementedError here.
+JAX package's numpy trees; env runners sample on the CPU; learners, and
+the updates that SAC, TD3, CQL and R2D2 run in the driver, compute on
+the card unless the caller asks for the CPU, and several learners sync
+gradients over the DCN group.
 """
 
-from ray_tpu_torch._private.not_ported import not_ported
 from ray_tpu_torch.rl.algorithms.appo import APPO, APPOConfig, appo_loss
 from ray_tpu_torch.rl.algorithms.dqn import (
     DQN,
@@ -72,24 +68,44 @@ from ray_tpu_torch.rl.replay import (
     n_step_transitions,
 )
 
-# The JAX package's names that the next slice (ROADMAP A7b) ports.
-A7B_NAMES = frozenset({
-    "SAC", "SACConfig", "TD3", "TD3Config", "DDPGConfig", "CQL", "CQLConfig",
-    "R2D2", "R2D2Config", "RecurrentPPO", "RecurrentPPOConfig",
-    "recurrent_ppo_loss", "APEX", "APEXConfig", "ReplayShardActor",
-    "MultiAgentEnv", "MultiAgentEnvRunner", "MultiAgentPPO",
-    "MultiAgentPPOConfig", "MultiRLModule", "BC", "BCConfig", "MARWIL",
-    "MARWILConfig", "bc_loss", "episodes_to_dataset", "dataset_to_batch",
-})
-
-
-def __getattr__(name):
-    if name in A7B_NAMES:
-        raise not_ported(f"ray_tpu_torch.rl.{name}", "A7b")
-    raise AttributeError(f"module 'ray_tpu_torch.rl' has no attribute {name!r}")
-
+from ray_tpu_torch.rl.algorithms.apex import APEX, APEXConfig, ReplayShardActor
+from ray_tpu_torch.rl.algorithms.cql import CQL, CQLConfig
+from ray_tpu_torch.rl.algorithms.r2d2 import R2D2, R2D2Config
+from ray_tpu_torch.rl.algorithms.recurrent_ppo import (
+    RecurrentPPO,
+    RecurrentPPOConfig,
+    recurrent_ppo_loss,
+)
+from ray_tpu_torch.rl.algorithms.sac import SAC, SACConfig
+from ray_tpu_torch.rl.algorithms.td3 import DDPGConfig, TD3, TD3Config
+from ray_tpu_torch.rl.multi_agent import (
+    MultiAgentEnv,
+    MultiAgentEnvRunner,
+    MultiAgentPPO,
+    MultiAgentPPOConfig,
+    MultiRLModule,
+)
+from ray_tpu_torch.rl.offline import (
+    BC,
+    BCConfig,
+    MARWIL,
+    MARWILConfig,
+    bc_loss,
+    dataset_to_batch,
+    episodes_to_dataset,
+)
 
 __all__ = [
+    "SAC",
+    "SACConfig",
+    "TD3",
+    "TD3Config",
+    "CQL",
+    "CQLConfig",
+    "APEX",
+    "APEXConfig",
+    "ReplayShardActor",
+    "DDPGConfig",
     "ContinuousModuleSpec",
     "ContinuousPolicyModule",
     "ContinuousTransitionRunner",
@@ -107,6 +123,11 @@ __all__ = [
     "RecurrentModuleSpec",
     "RecurrentPolicyModule",
     "RecurrentQNetworkModule",
+    "RecurrentPPO",
+    "RecurrentPPOConfig",
+    "R2D2",
+    "R2D2Config",
+    "recurrent_ppo_loss",
     "DuelingQNetworkModule",
     "EnvRunner",
     "compute_gae",
@@ -131,9 +152,21 @@ __all__ = [
     "IMPALAConfig",
     "impala_loss",
     "vtrace",
+    "MultiAgentEnv",
+    "MultiAgentEnvRunner",
+    "MultiAgentPPO",
+    "MultiAgentPPOConfig",
+    "MultiRLModule",
     "Connector",
     "ConnectorPipeline",
     "FlattenObs",
     "NormalizeObs",
     "ClipReward",
+    "BC",
+    "BCConfig",
+    "MARWIL",
+    "MARWILConfig",
+    "bc_loss",
+    "episodes_to_dataset",
+    "dataset_to_batch",
 ]

@@ -37,7 +37,9 @@ def flatten(tree, prefix: str = "") -> Dict[str, Any]:
 
 def unflatten(flat: Dict[str, Any]):
     """The inverse of `flatten`: a level whose keys are all indices is a
-    list."""
+    list; a lone "" path is a bare leaf."""
+    if set(flat) == {""}:
+        return flat[""]
     root: Dict = {}
     for path, leaf in flat.items():
         node = root
@@ -108,3 +110,60 @@ def matched_leaves(ours, theirs) -> List[Tuple[torch.Tensor, Any]]:
         pairs.append((t, b[k]))
     return pairs
 
+
+
+def find_adam(opt_state):
+    """The Adam moments of an optimizer state as {"count", "mu", "nu"}:
+    optax's ScaleByAdamState anywhere in the JAX package's chain (a
+    clip ahead of Adam, the learning-rate scale after it), or the
+    port's own dict of those keys. None where there is none."""
+    if isinstance(opt_state, dict):
+        return opt_state if {"count", "mu", "nu"} <= set(opt_state) else None
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return {"count": opt_state.count, "mu": opt_state.mu,
+                "nu": opt_state.nu}
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = find_adam(part)
+            if found is not None:
+                return found
+    return None
+
+
+def load_adam(optimizer: torch.optim.Optimizer, params: Dict[str, Any],
+              opt_state) -> None:
+    """Load Adam's moments into a `torch.optim.Adam` over `params` (flat
+    path -> parameter, the paths of the moments' tree): mu is exp_avg,
+    nu exp_avg_sq and count the step, as optax counts it."""
+    adam = find_adam(opt_state)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam moments")
+    mu, nu = flatten(adam["mu"]), flatten(adam["nu"])
+    if set(mu) != set(params) or set(nu) != set(params):
+        raise ValueError(f"Adam's moments {sorted(mu)} do not match the "
+                         f"parameters {sorted(params)}")
+    step = torch.tensor(float(np.asarray(adam["count"])))
+    on_device = optimizer.defaults.get("capturable", False)
+    for k, p in params.items():
+        optimizer.state[p] = {
+            "step": step.to(p.device) if on_device else step.clone(),
+            "exp_avg": leaf_from_jax(mu[k], p.device).to(p.dtype),
+            "exp_avg_sq": leaf_from_jax(nu[k], p.device).to(p.dtype)}
+
+
+def adam_to_jax(optimizer: torch.optim.Optimizer,
+                params: Dict[str, Any]) -> Dict[str, Any]:
+    """A `torch.optim.Adam`'s state over `params` as {"count", "mu",
+    "nu"} in the JAX layout (zeros before the first step, as optax's
+    init)."""
+    mu, nu, count = {}, {}, 0
+    for k, p in params.items():
+        st = optimizer.state.get(p) or {}
+        if st:
+            count = int(float(st["step"]))
+        mu[k] = leaf_to_jax(st["exp_avg"]) if st else \
+            np.zeros(tuple(p.shape), np.float32)
+        nu[k] = leaf_to_jax(st["exp_avg_sq"]) if st else \
+            np.zeros(tuple(p.shape), np.float32)
+    return {"count": np.asarray(count, np.int32), "mu": unflatten(mu),
+            "nu": unflatten(nu)}

@@ -36,6 +36,36 @@ def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
 
 
+def adam(params, lr: float, capturable: bool = False) -> torch.optim.Adam:
+    """`optax.adam(lr)`: b1 0.9, b2 0.999, eps 1e-8 (`capturable` keeps
+    the step count on the parameters' device, for CUDA graphs)."""
+    return torch.optim.Adam(list(params), lr=lr, eps=1e-8,
+                            capturable=capturable)
+
+
+def step(optimizer: torch.optim.Optimizer, params, loss,
+         max_norm: Optional[float] = None) -> None:
+    """One optimizer step on d loss / d params alone (other leaves the
+    loss reaches take no gradient); with `max_norm`, optax's
+    clip_by_global_norm ahead of it."""
+    params = list(params)
+    grads = list(torch.autograd.grad(loss, params))
+    if max_norm is not None:
+        clip_by_global_norm_(grads, max_norm, global_norm(grads))
+    for p, g in zip(params, grads):
+        p.grad = g
+    optimizer.step()
+    for p in params:
+        p.grad = None
+
+
+def readback(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Metric tensors as floats, in one copy to the host."""
+    keys = list(metrics)
+    vals = torch.stack([metrics[k].float().reshape(()) for k in keys])
+    return dict(zip(keys, vals.tolist()))
+
+
 def to_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """A batch of numpy arrays (or tensors) on `device`. Arrays read from
     the object store are read-only views; the tensors over them are only
@@ -100,11 +130,7 @@ class Learner:
         metrics["grad_norm"] = gnorm
         return metrics
 
-    @staticmethod
-    def _readback(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-        keys = list(metrics)
-        vals = torch.stack([metrics[k].float().reshape(()) for k in keys])
-        return dict(zip(keys, vals.tolist()))
+    _readback = staticmethod(readback)
 
     # -- reference API shape ---------------------------------------------
     def update_from_batch(self, batch: Dict) -> Dict[str, float]:

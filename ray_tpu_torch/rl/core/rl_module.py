@@ -15,7 +15,7 @@ draws them again in place (the role of the JAX module's `init(rng)`).
 Sampling takes an explicit `torch.Generator`; the JAX package's
 `jax.random` streams cannot be matched bit for bit, so noise that the
 JAX API takes as arrays (NoisyNet's `eps_in`, `eps_out`) is the port's
-input too.
+input too, and the continuous module's Gaussian draw may be given.
 """
 
 from __future__ import annotations
@@ -359,6 +359,15 @@ class C51QNetworkModule(QNetworkModule):
                 "q_values": (probs * self.support).sum(-1)}
 
 
+def _sech2(x: torch.Tensor) -> torch.Tensor:
+    """1 - tanh(x)^2 without the cancellation: 4 e^-2|x| / (1 + e^-2|x|)^2.
+    The JAX package takes 1 - a^2 of the rounded tanh, where one ulp of
+    a near |x| = 8 moves log(1 - a^2 + 1e-6) by up to 0.39 (ROADMAP §C);
+    both equal log(sech^2 x + 1e-6) in exact arithmetic."""
+    t = torch.exp(-2.0 * x.abs())
+    return 4.0 * t / (1.0 + t) ** 2
+
+
 @dataclass(frozen=True)
 class ContinuousModuleSpec:
     """Spec for continuous-control modules (SAC family)."""
@@ -397,15 +406,20 @@ class ContinuousPolicyModule(RLModule):
         mu, log_std = out.chunk(2, dim=-1)
         return mu, log_std.clamp(self.LOG_STD_MIN, self.LOG_STD_MAX)
 
-    def sample_with_logp(self, obs: torch.Tensor, gen: torch.Generator):
-        """Reparameterized tanh-Gaussian sample + its log-prob."""
+    def sample_with_logp(self, obs: torch.Tensor, gen: torch.Generator = None,
+                         eps: torch.Tensor = None):
+        """Reparameterized tanh-Gaussian sample + its log-prob. `eps`, the
+        standard normal draw, is drawn from `gen` unless given; a draw of
+        shape [K, B, d] against obs [B, D] samples K actions a state."""
         mu, log_std = self._dist(obs)
-        eps = torch.randn(mu.shape, generator=gen, device=mu.device)
-        a = torch.tanh(mu + log_std.exp() * eps)
+        if eps is None:
+            eps = torch.randn(mu.shape, generator=gen, device=mu.device)
+        pre = mu + log_std.exp() * eps
+        a = torch.tanh(pre)
         # N(pre; mu, std) log-density with the tanh change of variables.
         gauss_logp = (-0.5 * eps ** 2 - log_std
                       - 0.5 * float(np.log(2.0 * np.pi))).sum(-1)
-        return a, gauss_logp - torch.log(1.0 - a ** 2 + 1e-6).sum(-1)
+        return a, gauss_logp - torch.log(_sech2(pre) + 1e-6).sum(-1)
 
     def deterministic_action(self, obs: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self._dist(obs)[0])

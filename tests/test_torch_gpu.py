@@ -12,7 +12,8 @@ map_batches, a closed-loop loadgen trace through a GPU replica, and the
 collective layer on the card (the local group's NCCL allreduce, a DCN
 round trip of a bf16 card tensor, int8/fp8 codes made on the card equal
 to the CPU's), and the RL stack (the Nature-CNN policy against the CPU,
-a learner on the card by default, a two-learner group sharing the card).
+a learner on the card by default, a two-learner group sharing the card,
+SAC's updates replayed as a CUDA graph against eager ones).
 Each test skips without a
 CUDA device. This file imports no JAX, so on a machine with a card and
 without JAX it runs on its own:
@@ -1210,3 +1211,42 @@ def test_rl_learner_group_holds_the_card(cuda_device):
             group.shutdown()
     finally:
         rt.shutdown()
+
+
+def test_rl_sac_updates_replayed_as_a_cuda_graph_equal_eager_ones(cuda_device):
+    """SAC's update on the card (2 x 256 hidden, batch 256): ten updates
+    replayed as a CUDA graph (GraphedUpdates: three eager, one captured,
+    then replays) leave the state bit-equal to the same ten updates run
+    eagerly from the same state, minibatches and draws."""
+    from ray_tpu_torch.rl.algorithms import sac
+    from ray_tpu_torch.rl.core import convert
+    from ray_tpu_torch.rl.core.rl_module import (ContinuousModuleSpec,
+                                                 ContinuousPolicyModule)
+
+    spec = ContinuousModuleSpec(3, 1, -2.0, 2.0, (256, 256))
+    update = sac.make_sac_update(0.99, 0.005, -1.0)
+    states = [sac.init_sac_state(ContinuousPolicyModule(spec).init(0).to(
+        cuda_device), 3e-4) for _ in range(2)]
+    g = torch.Generator(cuda_device).manual_seed(0)
+    n, B = 10, 256
+    batches = {"obs": torch.randn((n, B, 3), generator=g, device=cuda_device),
+               "actions": torch.rand((n, B, 1), generator=g,
+                                     device=cuda_device) * 2 - 1,
+               "rewards": torch.randn((n, B), generator=g, device=cuda_device),
+               "next_obs": torch.randn((n, B, 3), generator=g,
+                                       device=cuda_device),
+               "dones": torch.zeros((n, B), device=cuda_device)}
+    noise = torch.randn((n, 2, B, 1), generator=g, device=cuda_device)
+
+    def one(state):
+        return lambda b, z: update(state, b, {"next": z[0], "pi": z[1]})
+
+    for i in range(n):
+        want = one(states[0])({k: v[i] for k, v in batches.items()}, noise[i])
+    got = sac.GraphedUpdates(one(states[1])).run(batches, noise)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    a, b = (convert.flatten(sac.sac_state_to_jax(st)) for st in states)
+    for k in a:
+        assert (a[k] == b[k]).all(), k
+    assert int(a["pi_opt.count"]) == n

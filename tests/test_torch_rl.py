@@ -6,8 +6,9 @@ APPO and the DQN family (double, dueling, n-step, PER, C51, noisy) on
 CartPole and the pixel env, evaluation, checkpoint and restore, Tune,
 and the trainable's resources. Each case carries `slow` exactly where
 its JAX counterpart does, and asserts what that one asserts; learners
-run on the CPU (device="cpu"). The names of the next slice (ROADMAP
-A7b) raise NotImplementedError naming it.
+run on the CPU (device="cpu"). The names of the second half (ROADMAP
+A7b) import as the others do; their cases are in test_torch_rl_extras.py
+and test_torch_rl_offline.py.
 
 This file imports no JAX: env classes defined here reach the port's
 workers by reference, and the workers must not load JAX. The parity of
@@ -502,8 +503,8 @@ def test_recurrent_module_seq_matches_steps():
 def test_recurrent_runner_state_and_greedy_evaluation(rt_start):
     """The recurrent runner's checkpoint state carries its GRU state and
     generator; an evaluation runner threads the state greedily (the
-    runner half of test_recurrent_ppo_evaluation_and_runner_state, whose
-    algorithm is A7b)."""
+    runner half of test_recurrent_ppo_evaluation_and_runner_state; its
+    algorithm's half is in test_torch_rl_extras.py)."""
     from ray_tpu_torch.rl.algorithms.algorithm import EvalEnvRunner
     from ray_tpu_torch.rl.core.rl_module import (RecurrentModuleSpec,
                                                  RecurrentPolicyModule)
@@ -910,7 +911,7 @@ def test_noisy_multi_learner_split_replicates_noise():
         assert np.array_equal(s["eps_out"], batch["eps_out"])
 
 
-# -- the next slice's names ----------------------------------------------------
+# -- the second half's names ----------------------------------------------------
 
 @pytest.mark.parametrize("name", sorted([
     "SAC", "SACConfig", "TD3", "TD3Config", "DDPGConfig", "CQL", "CQLConfig",
@@ -921,10 +922,15 @@ def test_noisy_multi_learner_split_replicates_noise():
     "MARWILConfig", "bc_loss", "episodes_to_dataset", "dataset_to_batch",
 ]))
 def test_a7b_names_raise_naming_their_item(name):
+    """The second half's names, which raised NotImplementedError naming
+    A7b until it was ported, now import as exported names, and the
+    package has no module __getattr__ left to raise."""
     import importlib
 
     rl = importlib.import_module("ray_tpu_torch.rl")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        getattr(rl, name)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        exec(f"from ray_tpu_torch.rl import {name}", {})
+    assert name in rl.__all__
+    assert name in vars(rl)
+    ns = {}
+    exec(f"from ray_tpu_torch.rl import {name}", ns)
+    assert ns[name] is getattr(rl, name)
+    assert not hasattr(rl, "__getattr__") and not hasattr(rl, "A7B_NAMES")
