@@ -22,11 +22,13 @@ Usage:
     rt job submit|status|logs|list|stop ...
     rt loadgen gen TRACE [--seed N --duration S --qps Q --flash A:B:M ...]
     rt loadgen run TRACE --app APP [--address HOST:PORT] [--out REPORT]
+    rt up|down|attach CONFIG
+    rt exec [--all-nodes] CONFIG CMD...
 
 `rt start --head` also starts the dashboard (`ray_tpu_torch.dashboard`,
 port 8265 unless `--dashboard-port`; `--no-dashboard` to skip it).
-Not in the port yet: `rt up`, `down`, `exec` and `attach` (the
-autoscaler's launcher, ROADMAP A2b.7).
+`rt up/down/exec/attach` drive the cluster launcher
+(`ray_tpu_torch.autoscaler.launcher`) from a `.json` or YAML config.
 """
 
 from __future__ import annotations
@@ -39,8 +41,6 @@ import subprocess
 import sys
 import time
 from typing import Optional
-
-from ray_tpu_torch._private.not_ported import not_ported
 
 SESSION_FILE = os.path.join(
     os.environ.get("TMPDIR", "/tmp"), "ray_tpu_torch", "session.json"
@@ -1027,9 +1027,32 @@ def cmd_config(args):
 
 
 def cmd_up(args):
-    """`rt up/down/exec/attach` drive the autoscaler's cluster launcher,
-    which is not ported yet."""
-    raise not_ported(f"rt {args.command} (the cluster launcher)", "A2b.7")
+    """`rt up cluster.json` (reference: scripts.py:566 up)."""
+    from ray_tpu_torch.autoscaler.launcher import ClusterLauncher
+
+    ClusterLauncher.from_yaml(args.config).up()
+
+
+def cmd_down(args):
+    from ray_tpu_torch.autoscaler.launcher import ClusterLauncher
+
+    ClusterLauncher.from_yaml(args.config).down()
+
+
+def cmd_exec(args):
+    from ray_tpu_torch.autoscaler.launcher import ClusterLauncher
+
+    launcher = ClusterLauncher.from_yaml(args.config)
+    for out in launcher.exec(" ".join(args.cmd), all_nodes=args.all_nodes):
+        print(out, end="")
+
+
+def cmd_attach(args):
+    """Exec into an interactive shell on the head node."""
+    from ray_tpu_torch.autoscaler.launcher import ClusterLauncher
+
+    cmd = ClusterLauncher.from_yaml(args.config).attach_command()
+    os.execvp("/bin/sh", ["/bin/sh", "-c", cmd])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1062,16 +1085,17 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("down", help="tear down a YAML-launched cluster")
     sp.add_argument("config")
-    sp.set_defaults(fn=cmd_up)
+    sp.set_defaults(fn=cmd_down)
 
     sp = sub.add_parser("exec", help="run a command on the cluster head")
     sp.add_argument("config")
+    sp.add_argument("--all-nodes", action="store_true")
     sp.add_argument("cmd", nargs=argparse.REMAINDER)
-    sp.set_defaults(fn=cmd_up)
+    sp.set_defaults(fn=cmd_exec)
 
     sp = sub.add_parser("attach", help="open a shell on the cluster head")
     sp.add_argument("config")
-    sp.set_defaults(fn=cmd_up)
+    sp.set_defaults(fn=cmd_attach)
 
     sp = sub.add_parser("status", help="cluster resource overview")
     sp.add_argument("--address")
