@@ -2,6 +2,7 @@
 """Drive the PyTorch port (ray_tpu_torch) on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rmsnorm-fwd   # the RMSNorm forward alone
 
 Phases, each printing one JSON line; any failure exits non-zero and
 prints no result line:
@@ -9,17 +10,22 @@ prints no result line:
   device   the card's name, capability (must be 9.0) and power limit.
   build    builds every CUDA kernel in ray_tpu_torch/csrc (one nvcc per
            source, all at once); seconds counted as set-up; each flash
-           kernel's registers, spills (ptxas -v) and shared memory.
+           and RMSNorm kernel's registers, spills (ptxas -v) and shared
+           memory.
   kernels  the RMSNorm forward against its plain PyTorch version at the
            shapes the serving and training paths give it, in bf16 and
-           f32, with the stated tolerance; times at those shapes (CUDA
-           graphs of many launches, so the device time and not Python's
-           launch rate is measured) beside the plain version, one
-           PyTorch library call and the memory-bandwidth bound.
+           f32, with the stated tolerance; times at the serving shapes
+           (CUDA graphs of many launches, so the device time and not
+           Python's launch rate is measured) beside the plain version,
+           one PyTorch library call, the memory-bandwidth bound and the
+           per-launch floor.
   slice    llama3-8b at full width and depth in bf16 (random weights from
            seed 0) behind LLMReplica, paged KV, serving 10 requests; every
            request must finish with its 32 tokens, and the rmsnorm kernel
            must have run 2 * n_layers + 1 times per engine forward pass.
+           Then the replica is dropped: the card memory this process still
+           holds, after a garbage collection and again after torch's
+           cuBLAS workspaces are cleared, is recorded (not gated).
   step     one llama3-8b decode step (8 slots) and one prefill chunk,
            eager (wall and enqueue time) against a CUDA graph replay of
            the same kernels (the card's own time).
@@ -33,7 +39,10 @@ prints no result line:
            stated tolerances; times at the training shapes beside the
            plain version, the bound and one PyTorch library call, and the
            rmsnorm backward's beside the library's at every checked
-           shape; at the training shape, SDPA's own bf16 error against the
+           shape; the RMSNorm forward checked and timed as in `kernels`
+           at the training shapes (8192 x 2048 in bf16 and f32, the MoE
+           step's 4096 x 4096 and the DP step's 4096 x 2048); at the
+           training shape, SDPA's own bf16 error against the
            f32 plain version beside the kernels' (a yardstick, not a
            gate).
   train    llama2-1b at full width and depth in bf16 (random weights from
@@ -363,11 +372,17 @@ SEED = 0
 EPS = 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
-# serving's rows and widths, and the training step's 8192 x 2048
-KERNEL_ROWS = (1, 5, 8, 64, 2048, 8192)
+# serving's rows and widths, the training step's 8192 x 2048 and the MoE
+# and DP steps' 4096 rows
+KERNEL_ROWS = (1, 5, 8, 64, 2048, 4096, 8192)
 KERNEL_DIMS = (4096, 2048, 128)
-# decode (8 slots), prefill chunk, the training step's rows
-TIMED_SHAPES = ((8, 4096), (64, 4096), (8192, 2048))
+# The RMSNorm forward's timed shapes (rows, d, dtype): decode (8 slots)
+# and a prefill chunk of llama3-8b; the training step (llama2-1b, 8 x
+# 1024), in bf16 and f32; the MoE step (mixtral, 4 x 1024); the DP step
+# (llama2-1b, 4 x 1024 a rank).
+SERVE_FWD_SHAPES = ((8, 4096, "bfloat16"), (64, 4096, "bfloat16"))
+TRAIN_FWD_SHAPES = ((8192, 2048, "bfloat16"), (4096, 4096, "bfloat16"),
+                    (4096, 2048, "bfloat16"), (8192, 2048, "float32"))
 # The training step: llama2-1b, batch 8 x seq 1024 (bench.py's shape).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 8, 1024, 2, 10
 # (causal, Lq, Lk, head_dim, batch, heads) for the flash kernels' checks;
@@ -487,12 +502,12 @@ def phase_build():
     secs = time.perf_counter() - t0
     emit({"phase": "build", "seconds": secs, "built": built,
           "object_store_library": store.name,
-          "kernels": _build.kernel_names(), "flash_kernels": kernel_report()})
+          "kernels": _build.kernel_names(), "flash_kernels": kernel_report(),
+          "rmsnorm_kernels": _build.ptxas_report("rmsnorm")})
 
 
 def phase_kernels():
     import torch
-    import torch.nn.functional as F
 
     from ray_tpu_torch.ops.rmsnorm import _rmsnorm_plain, rmsnorm_cuda
 
@@ -522,39 +537,61 @@ def phase_kernels():
                              "rows": rows, "d": d, "max_abs_err": err,
                              "ok": ok})
                 cases.append(case)
-    timed = []
-    lib_fn = getattr(F, "rms_norm", None)
-    for rows, d in TIMED_SHAPES:
-        x = torch.randn((rows, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        w = (torch.randn(d, generator=gen, device=dev) * 0.1 + 1).to(
-            torch.bfloat16)
-        itemsize = x.element_size()
-        nbytes = 2 * rows * d * itemsize + d * itemsize
-        rec = {
-            "rows": rows, "d": d, "dtype": "bfloat16",
-            "kernel_ms": graph_ms(lambda: rmsnorm_cuda(x, w, EPS)),
-            "plain_ms": graph_ms(lambda: _rmsnorm_plain(x, w, EPS)),
-            "library_ms": (graph_ms(lambda: lib_fn(x, (d,), w, EPS))
-                           if lib_fn is not None else None),
-            "bytes": nbytes,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-        }
-        timed.append(rec)
-    # The per-launch floor: the device time of a one-element elementwise
-    # op, timed the same way. No launch at the small serving shapes can
-    # take less, whatever the bytes bound says.
-    one = torch.zeros(1, device=dev)
-    launch_floor_ms = graph_ms(lambda: one.add_(1.0))
-    for rec in timed:
-        rec["launch_floor_ms"] = launch_floor_ms
+    timed = rmsnorm_fwd_timed(SERVE_FWD_SHAPES)
+    max_abs = max([max_abs] + [r["max_abs_err"] for r in timed])
     emit({"phase": "kernels", "name": "rmsnorm_fwd",
-          "all_ok": all(c["ok"] for c in cases), "max_abs_err": max_abs,
-          "cases": cases, "timed": timed})
-    bad = [c for c in cases if not c["ok"]]
+          "all_ok": all(c["ok"] for c in cases + timed),
+          "max_abs_err": max_abs, "cases": cases, "timed": timed})
+    bad = [c for c in cases + timed if not c["ok"]]
     check(not bad, f"rmsnorm_fwd disagrees with its plain version: {bad}")
     return max_abs, timed
+
+
+def rmsnorm_fwd_timed(shapes) -> list:
+    """The RMSNorm forward at each (rows, d, dtype): checked against its
+    plain version (bf16 within 1 ulp, f32 within 1e-5) and timed (CUDA
+    graphs) beside the plain version, F.rms_norm, the bytes bound, the
+    per-launch floor (the device time of a one-element add_, timed the
+    same way: no launch can take less, whatever the bytes bound says) and
+    torch's copy_ of x into a tensor of its shape (the same bytes less w,
+    moved by a kernel that computes nothing: what the card streams in
+    practice, not a gate)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.rmsnorm import _rmsnorm_plain, rmsnorm_cuda
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms = graph_ms(lambda: one.add_(1.0))
+    timed = []
+    for rows, d, dtype in shapes:
+        dt = getattr(torch, dtype)
+        x = (torch.randn((rows, d), generator=gen, device=dev) * 3).to(dt)
+        w = (torch.randn(d, generator=gen, device=dev) * 0.1 + 1).to(dt)
+        got = rmsnorm_cuda(x, w, EPS)
+        want = _rmsnorm_plain(x, w, EPS)
+        rec = {"rows": rows, "d": d, "dtype": dtype,
+               "max_abs_err": float((got.float() - want.float()).abs().max())}
+        if dt == torch.float32:
+            rec.update(tol="rtol=atol=1e-5", ok=bool(torch.allclose(
+                got, want, rtol=1e-5, atol=1e-5)))
+        else:
+            ulp = bf16_ulp_diff(got, want)
+            rec.update(tol="1 bf16 ulp", ulp=ulp, ok=ulp <= 1)
+        nbytes = (2 * rows * d + d) * x.element_size()
+        rec.update({
+            "kernel_ms": graph_ms(lambda: rmsnorm_cuda(x, w, EPS)),
+            "plain_ms": graph_ms(lambda: _rmsnorm_plain(x, w, EPS),
+                                 calls=20),
+            "library_ms": graph_ms(lambda: F.rms_norm(x, (d,), w, EPS)),
+            "copy_ms": graph_ms(lambda: got.copy_(x)),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "launch_floor_ms": launch_floor_ms})
+        timed.append(rec)
+        del x, w, got, want
+    return timed
 
 
 def _shared_prompts(rng, vocab):
@@ -567,6 +604,9 @@ def _shared_prompts(rng, vocab):
 
 
 def phase_slice():
+    import gc
+    import threading
+
     import torch
 
     from ray_tpu_torch.models import configs, init_params
@@ -655,7 +695,22 @@ def phase_slice():
           f"not {per_pass} per pass")
     check(kv["prefix_hits"] >= 1, "the shared prefix never hit the cache")
     del params, rep, eng
+    # What this process still holds with the replica dropped and its engine
+    # joined, and again without torch's cuBLAS workspaces (one for each
+    # stream that ran a product): recorded, not gated.
+    gc.collect()
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+        torch.cuda.empty_cache()
+    emit({"phase": "slice", "part": "after_drop",
+          "cuda_memory_allocated": held,
+          "without_cublas_workspaces": (torch.cuda.memory_allocated()
+                                        if clear is not None else None),
+          "llm_engine_threads": sum(t.name == "llm-engine"
+                                    for t in threading.enumerate())})
     return launches, rec
 
 
@@ -1114,8 +1169,12 @@ def phase_train_kernels():
         timed[name]["error_vs_f32_plain"] = {
             x: {"kernel": error(kern_got[x], want[x]),
                 "sdpa": error(sdpa_got[x], want[x])} for x in outs}
+    timed["rmsnorm_fwd"] = rmsnorm_fwd_timed(TRAIN_FWD_SHAPES)
     emit({"phase": "train_kernels_timed", "flash_sdp_enabled":
           torch.backends.cuda.flash_sdp_enabled(), "timed": timed})
+    bad = [r for r in timed["rmsnorm_fwd"] if not r["ok"]]
+    check(not bad, f"rmsnorm_fwd disagrees with its plain version at the "
+          f"training shapes: {bad}")
     del q, k, v, do, o, lse, delta, qt, kt, vt, dot, qg, kg, vg
     del want, out, sdpa_got, kern_got
     torch.cuda.empty_cache()
@@ -7985,6 +8044,26 @@ def _left_behind(after: str) -> dict:
             "children": children}
 
 
+def rmsnorm_fwd_only() -> int:
+    """The RMSNorm forward alone: its build and ptxas report, then the
+    checks and times of `kernels` and `train_kernels` at all six shapes.
+    Copied beside another tree's ray_tpu_torch, it times that tree's
+    kernel the same way."""
+    from ray_tpu_torch import _build
+
+    _, smi = phase_device()
+    t0 = time.perf_counter()
+    _build.load("rmsnorm")
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "rmsnorm_kernels": _build.ptxas_report("rmsnorm")})
+    timed = rmsnorm_fwd_timed(SERVE_FWD_SHAPES + TRAIN_FWD_SHAPES)
+    emit({"phase": "rmsnorm_fwd", "timed": timed})
+    bad = [r for r in timed if not r["ok"]]
+    check(not bad, f"rmsnorm_fwd disagrees with its plain version: {bad}")
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -8001,6 +8080,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     torch.cuda.set_device(0)
+    if sys.argv[1:] == ["--rmsnorm-fwd"]:
+        return rmsnorm_fwd_only()
     seconds = {}
 
     def run(phase, *args):
@@ -8069,13 +8150,15 @@ def main() -> int:
                              "train_dcn": dcn["launches"]["rmsnorm_fwd"],
                              "serve_tp": serve_tp_launches,
                              "autoscaler": autoscaler_launches},
-        "max_abs_err": max(max_abs, moe["kernels"]["rmsnorm_fwd"][
+        "max_abs_err": max([max_abs, moe["kernels"]["rmsnorm_fwd"][
             "max_abs_err"], dcn["kernels_at_dp_shape"]["rmsnorm_fwd"][
-            "max_abs_err"]),
+            "max_abs_err"]] + [r["max_abs_err"]
+                               for r in train_timed["rmsnorm_fwd"]]),
         "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
         "shape": [decode["rows"], decode["d"]], "dtype": decode["dtype"],
+        "at_shapes": timed + train_timed["rmsnorm_fwd"],
     }]
     sources = {"rmsnorm_bwd": ("ray_tpu_torch/csrc/rmsnorm.cu",
                                "ray_tpu/ops/rmsnorm.py:56"),

@@ -1,24 +1,40 @@
 // RMSNorm forward and backward for Hopper (sm_90a).
 //
 // Forward: replaces the Pallas TPU kernel
-// ray_tpu/ops/rmsnorm.py::_rmsnorm_kernel (launched by
-// _rmsnorm_pallas_fwd2). Computes, per row of a [rows, d] input,
+// ray_tpu/ops/rmsnorm.py::_rmsnorm_kernel (ray_tpu/ops/rmsnorm.py:49,
+// launched by _rmsnorm_pallas_fwd2). Computes, per row of a [rows, d] input,
 //     y = bf16_or_f32( f32(x) * rsqrt(mean(f32(x)^2) + eps) * f32(w) )
 // multiplying x * inv first and then * w, in f32, rounding once at the
 // end (the order of ray_tpu/ops/rmsnorm.py::_rmsnorm_ref).
 //
 // What bounds it: bytes. The function reads x and w once and writes y
-// once: 2 * rows * d * itemsize + d * itemsize bytes. At 8 decode rows and
-// d = 4096 in bf16 that is 139 KB, about 0.04 us at the H100's 3.35 TB/s,
-// so at serving shapes the kernel is launch-bound, not memory-bound.
+// once: 2 * rows * d * itemsize + d * itemsize bytes, 20 us at 8192 x 2048
+// in bf16 at the H100's 3.35 TB/s. At 8 decode rows and d = 4096 that is
+// 139 KB, 0.04 us: there a launch waits on its memory round trips, and
+// the least time is the launch itself, not the bytes.
 //
-// Design (simple first; a fast design is later work): one block per row,
-// blockDim a multiple of 32 chosen by the caller (a single warp for
-// head_dim-sized rows). Each thread loads 16 bytes at a time where the row,
-// w and y are 16-byte aligned, with a scalar tail otherwise. The sum of
-// squares is in f32, reduced with warp shuffles and then across warps
-// through shared memory. The second pass re-reads x (the row is in L1/L2)
-// and writes y. The kernel allocates nothing.
+// The design (rmsnorm_fwd_kernel): one pass over x. Where every row is
+// whole aligned 16-byte vectors and a thread holds at most kFwdVpt (2) of
+// them (d up to 16384 in bf16 and 8192 in f32), a row is owned by a
+// group of tpr threads, the least power of two that leaves each at most
+// two vectors: 8 threads at d = 128 in bf16 (32 rows at a time in a
+// 256-thread block), 128 at 2048, 256 at 4096 (and at 2048 in f32), up to
+// 1024. A thread starts its loads of the first row's x and of w together
+// and keeps both in registers; it loads the next row's x before it
+// reduces this row's sum of squares (shuffles within a warp; one barrier
+// when a row spans warps), and writes y from the registers. So x is read
+// once from device memory, and a launch of a few rows waits on one memory
+// round trip, not two. The grid is the blocks the card keeps resident at
+// once (the occupancy query, times the SMs), or a quarter of the row
+// groups where that is more; each block walks rows (step * gridDim.x +
+// blockIdx.x) * groups + group and keeps w in registers across them, so w
+// is read once a block, not once a row. Two vectors, not four: four held
+// the row in 64 registers and spilled in the 1024-thread bound, with half
+// the blocks resident. Every other row (a scalar tail, an unaligned row
+// or row stride, d above that) takes the two-pass kernel
+// (rmsnorm_fwd_two_pass_kernel): a block walks rows one at a time, sums
+// the squares, then reads x again with w and writes y. Neither kernel
+// allocates anything.
 //
 // Backward: replaces ray_tpu/ops/rmsnorm.py::_rmsnorm_bwd_kernel (launched
 // by _rmsnorm_pallas_bwd2). Per row, recomputing the normalizer from x:
@@ -62,10 +78,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxVpt = 4;  // 16-byte vectors of x and of g a thread holds (one pass)
+constexpr int kMaxVpt = 4;  // 16-byte vectors of x and of g a thread holds (one-pass backward)
+// The one-pass forward: a row's group is the least power of two of
+// threads (up to 1024) that leaves each at most kFwdVpt 16-byte vectors,
+// in blocks of up to kFwdThreads threads; a block walks about kFwdSteps
+// steps of rows where the resident blocks would walk more.
+constexpr int kFwdVpt = 2;
+constexpr int kFwdThreads = 256;
+constexpr int kFwdSteps = 4;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -102,50 +127,142 @@ __device__ __forceinline__ float block_sum(float v) {
   return total;
 }
 
-template <typename T>
-__global__ void rmsnorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                                   T* __restrict__ y, int64_t d, int64_t x_stride,
-                                   int64_t y_stride, float eps) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
-  const int64_t row = blockIdx.x;
-  const T* xr = x + row * x_stride;
-  T* yr = y + row * y_stride;
-  const bool vec_ok =
-      ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(w) |
-        reinterpret_cast<uintptr_t>(yr)) & 15) == 0;
-  const int64_t nvec = vec_ok ? d / kVec : 0;
-  const int64_t tail = nvec * kVec;
+// One pass, for rows of whole 16-byte vectors, at most VPT of them a
+// thread. A group of tpr threads (a power of two that divides blockDim.x)
+// owns one row at a time; thread l of a group owns vectors l, l + tpr, ...
+// (below nvec) of every row it touches, so its w stays in registers. The
+// groups of a block take rows (step * gridDim.x + blockIdx.x) * groups +
+// group, step = 0, 1, ...; the loop's bound is the same for every thread
+// of the block, so its barriers match. Each thread loads the next row's x
+// before the current row's sum is reduced. A group's sum is reduced by
+// shuffles where it fits in a warp, else through one barrier (per-warp
+// sums in shared memory, double-buffered by step).
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kMaxThreads)
+    rmsnorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
+                       int64_t rows, int64_t d, int64_t x_stride, int64_t y_stride, float eps,
+                       int tpr) {
+  constexpr int kVec = 16 / sizeof(T);
+  __shared__ float wsum[2][kMaxThreads / 32];
+  const int64_t nvec = d / kVec;
+  const int groups = blockDim.x / tpr;
+  const int gi = threadIdx.x / tpr, gl = threadIdx.x % tpr;
+  const int warp = threadIdx.x >> 5;
+  const int64_t step_rows = static_cast<int64_t>(gridDim.x) * groups;
 
-  float ss = 0.0f;
-  for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x) {
-    uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
-    const T* v = reinterpret_cast<const T*>(&raw);
+  bool own[VPT];
+  uint4 xv[VPT], xn[VPT], wv[VPT];
+  int64_t base = static_cast<int64_t>(blockIdx.x) * groups;
+  // The first row's x and w, all in flight before any is used.
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      float f = to_f32(v[j]);
+  for (int i = 0; i < VPT; ++i) {
+    own[i] = gl + i * tpr < nvec;
+    xv[i] = own[i] && base + gi < rows
+                ? reinterpret_cast<const uint4*>(x + (base + gi) * x_stride)[gl + i * tpr]
+                : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int i = 0; i < VPT; ++i)
+    wv[i] = own[i] ? reinterpret_cast<const uint4*>(w)[gl + i * tpr] : make_uint4(0, 0, 0, 0);
+
+  for (int step = 0; base < rows; base += step_rows, ++step) {
+    const int64_t row = base + gi;
+    float ss = 0.0f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const T* v = reinterpret_cast<const T*>(&xv[i]);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float f = to_f32(v[j]);
+        ss += f * f;
+      }
+    }
+    // The next row's x, in flight during this row's reduction and store.
+    const int64_t next = row + step_rows;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i)
+      xn[i] = own[i] && next < rows
+                  ? reinterpret_cast<const uint4*>(x + next * x_stride)[gl + i * tpr]
+                  : make_uint4(0, 0, 0, 0);
+    if (tpr <= 32) {
+      for (int off = tpr >> 1; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    } else {
+      float* ws = wsum[step & 1];
+      ss = warp_sum(ss);
+      if ((threadIdx.x & 31) == 0) ws[warp] = ss;
+      __syncthreads();
+      ss = 0.0f;
+      for (int k = gi * (tpr >> 5); k < (gi + 1) * (tpr >> 5); ++k) ss += ws[k];
+    }
+    const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
+    if (row < rows) {
+#pragma unroll
+      for (int i = 0; i < VPT; ++i) {
+        if (!own[i]) continue;
+        const T* xs = reinterpret_cast<const T*>(&xv[i]);
+        const T* wr = reinterpret_cast<const T*>(&wv[i]);
+        uint4 out;
+        T* ov = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) ov[j] = from_f32<T>(to_f32(xs[j]) * inv * to_f32(wr[j]));
+        reinterpret_cast<uint4*>(y + row * y_stride)[gl + i * tpr] = out;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) xv[i] = xn[i];
+  }
+}
+
+// Two passes, for every other row (a scalar tail, an unaligned row or row
+// stride, or more vectors than a thread holds): rows blockIdx.x, blockIdx.x
+// + gridDim.x, ..., one at a time. The first pass sums the squares (16-byte
+// loads where this row allows them, scalars otherwise), the second reads x
+// again with w and writes y.
+template <typename T>
+__global__ void rmsnorm_fwd_two_pass_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                                            T* __restrict__ y, int64_t rows, int64_t d,
+                                            int64_t x_stride, int64_t y_stride, float eps) {
+  constexpr int kVec = 16 / sizeof(T);
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + row * x_stride;
+    T* yr = y + row * y_stride;
+    const bool vec_ok =
+        ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(w) |
+          reinterpret_cast<uintptr_t>(yr)) & 15) == 0;
+    const int64_t nvec = vec_ok ? d / kVec : 0;
+    const int64_t tail = nvec * kVec;
+
+    float ss = 0.0f;
+    for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x) {
+      uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        float f = to_f32(v[j]);
+        ss += f * f;
+      }
+    }
+    for (int64_t i = tail + threadIdx.x; i < d; i += blockDim.x) {
+      float f = to_f32(xr[i]);
       ss += f * f;
     }
-  }
-  for (int64_t i = tail + threadIdx.x; i < d; i += blockDim.x) {
-    float f = to_f32(xr[i]);
-    ss += f * f;
-  }
-  ss = block_sum(ss);
-  const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
+    ss = block_sum(ss);
+    const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
 
-  for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x) {
-    uint4 xraw = reinterpret_cast<const uint4*>(xr)[i];
-    uint4 wraw = reinterpret_cast<const uint4*>(w)[i];
-    uint4 out;
-    const T* xv = reinterpret_cast<const T*>(&xraw);
-    const T* wv = reinterpret_cast<const T*>(&wraw);
-    T* ov = reinterpret_cast<T*>(&out);
+    for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x) {
+      uint4 xraw = reinterpret_cast<const uint4*>(xr)[i];
+      uint4 wraw = reinterpret_cast<const uint4*>(w)[i];
+      uint4 out;
+      const T* xv = reinterpret_cast<const T*>(&xraw);
+      const T* wv = reinterpret_cast<const T*>(&wraw);
+      T* ov = reinterpret_cast<T*>(&out);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) ov[j] = from_f32<T>(to_f32(xv[j]) * inv * to_f32(wv[j]));
-    reinterpret_cast<uint4*>(yr)[i] = out;
-  }
-  for (int64_t i = tail + threadIdx.x; i < d; i += blockDim.x) {
-    yr[i] = from_f32<T>(to_f32(xr[i]) * inv * to_f32(w[i]));
+      for (int j = 0; j < kVec; ++j) ov[j] = from_f32<T>(to_f32(xv[j]) * inv * to_f32(wv[j]));
+      reinterpret_cast<uint4*>(yr)[i] = out;
+    }
+    for (int64_t i = tail + threadIdx.x; i < d; i += blockDim.x) {
+      yr[i] = from_f32<T>(to_f32(xr[i]) * inv * to_f32(w[i]));
+    }
   }
 }
 
@@ -446,6 +563,87 @@ int launch_rows(Kernel kernel, int blocks, int threads, size_t smem, cudaStream_
   return 0;
 }
 
+// Blocks of `threads` threads that one SM keeps resident for `kernel`,
+// from the occupancy query, kept in `cache` (indexed by threads / 32):
+// the query costs host time that a launch of a few rows should not pay
+// twice. Returns 0 or the query's error.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, std::atomic<int>* cache, int* per_sm) {
+  *per_sm = cache[threads / 32].load(std::memory_order_relaxed);
+  if (*per_sm > 0) return 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (*per_sm < 1) *per_sm = 1;
+  cache[threads / 32].store(*per_sm, std::memory_order_relaxed);
+  return 0;
+}
+
+// One cache of resident blocks per forward kernel: VPT 1..kFwdVpt for the
+// one-pass kernel, 0 for the two-pass one.
+template <typename T, int VPT>
+std::atomic<int>* fwd_cache() {
+  static std::atomic<int> cache[kMaxThreads / 32 + 1];
+  return cache;
+}
+
+// Launch `kernel` on the blocks the card keeps resident at once (sms
+// times the blocks an SM holds), or on wanted / kFwdSteps blocks where
+// that is more, and never on more than `wanted`: each block walks rows.
+// On the H100 a grid of exactly the resident blocks left the shapes that
+// stream from device memory 1-5% slower (its tail: no block is left to
+// take an idle SM's place); a grid of one step a block reloads w from L2
+// once a row group, which an input held in L2 pays for.
+template <typename T, int VPT, typename Kernel, typename... Args>
+int launch_resident(Kernel kernel, int64_t wanted, int threads, int sms, cudaStream_t s,
+                    Args... args) {
+  int per_sm = 0;
+  const int err = resident_blocks(kernel, threads, fwd_cache<T, VPT>(), &per_sm);
+  if (err != 0) return err;
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  const int64_t stepped = (wanted + kFwdSteps - 1) / kFwdSteps;
+  const int64_t cap = resident > stepped ? resident : stepped;
+  const int blocks = static_cast<int>(wanted < cap ? wanted : cap);
+  kernel<<<blocks, threads, 0, s>>>(args...);
+  return 0;
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* w, void* y, int64_t rows, int64_t d, int64_t x_stride,
+               int64_t y_stride, float eps, int sms, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  T* yt = static_cast<T*>(y);
+  const int64_t nvec = d / kVec;
+  int tpr = 1;
+  while (static_cast<int64_t>(tpr) * kFwdVpt < nvec && tpr < kMaxThreads) tpr <<= 1;
+  const int64_t vpt = (nvec + tpr - 1) / tpr;
+  const bool one_pass =
+      d % kVec == 0 && vpt <= kFwdVpt &&
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+        reinterpret_cast<uintptr_t>(y)) & 15) == 0 &&
+      (x_stride * static_cast<int64_t>(sizeof(T))) % 16 == 0 &&
+      (y_stride * static_cast<int64_t>(sizeof(T))) % 16 == 0;
+  if (!one_pass) {
+    // A thread per 16-byte vector, in whole warps, at most 256 a row.
+    const int64_t n = nvec > 0 ? nvec : 1;
+    const int threads = static_cast<int>(n >= 256 ? 256 : (n + 31) / 32 * 32);
+    return launch_resident<T, 0>(rmsnorm_fwd_two_pass_kernel<T>, rows, threads, sms, s, xt, wt,
+                                 yt, rows, d, x_stride, y_stride, eps);
+  }
+  // At least a warp a block; up to 256 threads while there are rows to
+  // fill them (tpr itself where a row needs more).
+  int threads = tpr < 32 ? 32 : tpr;
+  while (threads < kFwdThreads && threads < rows * tpr) threads <<= 1;
+  const int64_t groups = threads / tpr;
+  const int64_t wanted = (rows + groups - 1) / groups;
+  if (vpt == 1)
+    return launch_resident<T, 1>(rmsnorm_fwd_kernel<T, 1>, wanted, threads, sms, s, xt, wt, yt,
+                                 rows, d, x_stride, y_stride, eps, tpr);
+  return launch_resident<T, 2>(rmsnorm_fwd_kernel<T, 2>, wanted, threads, sms, s, xt, wt, yt,
+                               rows, d, x_stride, y_stride, eps, tpr);
+}
+
 template <typename T>
 int launch_bwd(const void* x, const void* w, const void* g, void* dx, float* dw_part, void* dw,
                int64_t rows, int64_t d, int64_t x_stride, float eps, int threads, int blocks,
@@ -501,28 +699,23 @@ int launch_bwd(const void* x, const void* w, const void* g, void* dx, float* dw_
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Launches on `stream` and returns
+// dtype: 0 = float32, 1 = bfloat16; sms: the card's SM count (the grid
+// is sized from it, see launch_resident). Launches on `stream` and returns
 // cudaGetLastError() (0 on success); the caller raises on anything else.
+// The one-pass kernel where every row is whole aligned 16-byte vectors, at
+// most kFwdVpt of them a thread of a 1024-thread group; the two-pass
+// kernel otherwise.
 extern "C" int rt_rmsnorm_fwd(const void* x, const void* w, void* y, int64_t rows,
                               int64_t d, int64_t x_stride, int64_t y_stride, float eps,
-                              int dtype, int threads, void* stream) {
-  if (rows <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+                              int dtype, int sms, void* stream) {
+  if (rows <= 0 || d <= 0 || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(static_cast<unsigned>(rows));
-  dim3 block(static_cast<unsigned>(threads));
-  if (dtype == 0) {
-    rmsnorm_fwd_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y), d,
-        x_stride, y_stride, eps);
-  } else if (dtype == 1) {
-    rmsnorm_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(y), d, x_stride, y_stride, eps);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    err = launch_fwd<float>(x, w, y, rows, d, x_stride, y_stride, eps, sms, s);
+  else if (dtype == 1)
+    err = launch_fwd<__nv_bfloat16>(x, w, y, rows, d, x_stride, y_stride, eps, sms, s);
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }
 

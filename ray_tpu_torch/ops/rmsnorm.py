@@ -81,13 +81,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _threads_for(d: int, itemsize: int) -> int:
-    """Threads per row: one per 16-byte vector, in whole warps, capped at
-    256 (a thread then loops over several vectors)."""
-    nvec = max(1, d // (16 // itemsize))
-    return min(256, max(32, -(-nvec // 32) * 32))
-
-
 def _check_cuda_args(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Validate x and w for a kernel; returns x as [rows, d] rows with a
     unit stride in the last axis."""
@@ -108,7 +101,8 @@ def _check_cuda_args(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tenso
 
 def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Launch the CUDA forward kernel on x's current stream. x: [..., d]
-    with a unit stride in its last axis; w: [d], same dtype and device."""
+    with a unit stride in its last axis; w: [d], same dtype and device.
+    The kernel sizes its own blocks to d and its grid to the card's SMs."""
     x2 = _check_cuda_args("rmsnorm_cuda", x, w)
     rows, d = x2.shape
     y = torch.empty((rows, d), dtype=x.dtype, device=x.device)
@@ -117,8 +111,7 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.T
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel()(x2.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d,
                     x2.stride(0), y.stride(0), float(eps),
-                    _DTYPE_CODE[x.dtype], _threads_for(d, x.element_size()),
-                    stream)
+                    _DTYPE_CODE[x.dtype], _sm_count(x.device.index), stream)
     if err != 0:
         raise RuntimeError(f"rmsnorm CUDA kernel launch failed: cudaError {err}")
     rmsnorm_cuda.launches += 1

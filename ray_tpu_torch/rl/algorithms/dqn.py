@@ -347,6 +347,15 @@ class DQN(AlgorithmBase):
             "online_params": self._online_params,
         }
 
+    def _restore_extra_state(self, extra):
+        # Through the setters: the target and online nets load the
+        # checkpoint's numpy trees onto self.device, wherever they were
+        # saved from.
+        if "target_params" in extra:
+            self.target_params = extra["target_params"]
+        if "online_params" in extra:
+            self._online_params = extra["online_params"]
+
     def _epsilon(self) -> float:
         cfg = self.config
         if cfg.noisy:

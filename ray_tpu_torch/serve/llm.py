@@ -1669,6 +1669,16 @@ class LLMReplica:
         if self._followers is not None:
             self._followers.stop()
 
+    def __del__(self):
+        # A dropped replica stops its engine, whose thread holds the
+        # engine (not the replica) and with it the weights and the KV
+        # cache. At interpreter teardown modules may be half unloaded,
+        # and raising from __del__ only prints noise.
+        try:
+            self.shutdown()
+        except Exception:  # noqa: BLE001
+            pass
+
 
 def llm_deployment(model_loader, *, num_slots: int = 4, max_len: int = 256,
                    eos_id: Optional[int] = None,

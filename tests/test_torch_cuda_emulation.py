@@ -32,8 +32,8 @@ from ray_tpu_torch.ops.flash_attention import (_ARG_INT, _ARG_TAIL,
                                                _flash_bwd_dkv_plain,
                                                _flash_bwd_dq_plain,
                                                _flash_fwd_plain, _strides)
-from ray_tpu_torch.ops.rmsnorm import (_BWD_THREADS, _rmsnorm_bwd_plain,
-                                       _rmsnorm_plain, _threads_for)
+from ray_tpu_torch.ops.rmsnorm import (_BWD_MAX_D, _BWD_THREADS,
+                                       _rmsnorm_bwd_plain, _rmsnorm_plain)
 
 torch.set_num_threads(1)
 
@@ -103,6 +103,12 @@ thread_local cudaError_t emu_error = cudaSuccess;
 template <typename K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
   return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;  // H100: 227 KB a block
+}
+// One resident block an SM: a launcher's `sms` is then its grid's cap.
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() {
   cudaError_t e = emu_error;
@@ -379,6 +385,13 @@ def _assert_close(got, want, dtype, tol):
     assert worst <= 2 ** -6 * float(want.abs().max())
 
 
+def _bf16_ulp_diff(a, b) -> int:
+    def ordered(t):
+        i = t.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
 # (causal, lq, lk, d, heads, dtype): every bf16 tensor-core instantiation
 # (d = 64, 128 and 256: dk/dv's two warps per row block), causal Lq != Lk
 # both ways and ragged tails; one f32 case runs the CUDA-core kernels.
@@ -421,12 +434,21 @@ def test_flash_kernels_emulated_match_plain(emulated, causal, lq, lk, d, h,
 
 
 # (rows, d, row_pad, blocks, dtype): the RMSNorm kernels through
-# rt_rmsnorm_fwd / rt_rmsnorm_bwd with the wrapper's threads. One-pass
-# backward: 16-thread row groups that take two steps a block (d = 128),
-# a block per row with one barrier a row (2048), two vectors a thread with
-# some threads owning one (3072), four (4096 in f32), x read through a row
-# stride; two-pass backward: a scalar tail (100 in bf16) and an unaligned
-# row stride. The last three launch one block, which writes dw itself.
+# rt_rmsnorm_fwd (`blocks` SMs: its grid is `blocks`, or a quarter of
+# the row groups where that is more, as the emulation keeps one block an
+# SM) and rt_rmsnorm_bwd (`blocks` blocks of the wrapper's threads).
+# One-pass forward: groups of 8 threads, 32 rows a block, that walk four
+# steps (300 x 128), 64-thread groups (1024), 128 (2048, its
+# rows through a padded stride), 256 at one and at eight rows (4096), one
+# vector a thread for some threads (3072), a 1024-thread group (16384);
+# blocks walk rows wherever the grid is smaller than the row groups.
+# Two-pass forward: a scalar tail (100 in bf16), an unaligned row stride,
+# and d past the one-pass budget (12288 and 16392 in f32). One-pass
+# backward: 16-thread row groups that take two steps a block (d = 128), a
+# block per row with one barrier a row (2048), two vectors a thread with
+# some threads owning one (3072), four (4096 in f32), x read through a
+# row stride; two-pass backward: a scalar tail, an unaligned row stride,
+# 12288; past 12288 it refuses. Cases of one block write dw themselves.
 @pytest.mark.parametrize("rows,d,pad,blocks,dtype", [
     (37, 128, 0, 2, "bfloat16"),
     (21, 2048, 8, 4, "bfloat16"),
@@ -437,6 +459,13 @@ def test_flash_kernels_emulated_match_plain(emulated, causal, lq, lk, d, h,
     (5, 128, 0, 3, "bfloat16"),
     (1, 2048, 0, 1, "float32"),
     (1, 100, 0, 1, "bfloat16"),
+    (300, 128, 0, 2, "bfloat16"),
+    (40, 1024, 0, 2, "bfloat16"),
+    (8, 4096, 0, 2, "bfloat16"),
+    (1, 4096, 0, 1, "bfloat16"),
+    (3, 12288, 0, 1, "float32"),
+    (2, 16384, 0, 1, "bfloat16"),
+    (2, 16392, 0, 1, "float32"),
 ])
 def test_rmsnorm_kernels_emulated_match_plain(emulated, rows, d, pad, blocks,
                                               dtype):
@@ -449,9 +478,11 @@ def test_rmsnorm_kernels_emulated_match_plain(emulated, rows, d, pad, blocks,
     y = torch.empty((rows, d), dtype=tdt)
     err = emulated["rt_rmsnorm_fwd"](
         x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, x.stride(0), d,
-        eps, _DTYPE_CODE[tdt], _threads_for(d, x.element_size()), None)
+        eps, _DTYPE_CODE[tdt], blocks, None)
     assert err == 0, f"rt_rmsnorm_fwd returned {err}"
     _assert_close(y, _rmsnorm_plain(x.float(), w.float(), eps), tdt, 1e-5)
+    if tdt == torch.bfloat16:  # tests/test_torch_gpu.py's: 1 ulp of plain
+        assert _bf16_ulp_diff(y, _rmsnorm_plain(x, w, eps)) <= 1
 
     dx = torch.empty((rows, d), dtype=tdt)
     dw = torch.empty(d, dtype=tdt)
@@ -460,6 +491,10 @@ def test_rmsnorm_kernels_emulated_match_plain(emulated, rows, d, pad, blocks,
         x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
         dw_part.data_ptr(), dw.data_ptr(), rows, d, x.stride(0), eps,
         _DTYPE_CODE[tdt], _BWD_THREADS, blocks, None)
+    if d > _BWD_MAX_D:
+        # The two-pass backward's dw row does not fit its 48 KB.
+        assert err != 0, "rt_rmsnorm_bwd took a row wider than it holds"
+        return
     assert err == 0, f"rt_rmsnorm_bwd returned {err}"
     want = _rmsnorm_bwd_plain(x.float(), w.float(), g.float(), eps)
     _assert_close(dx, want[0], tdt, 1e-4)

@@ -596,6 +596,13 @@ _VOLATILE = ("node_id", "actor_id", "task_id", "object_id", "pg_id",
              "end_time", "locations")
 
 
+# Resource quantities are sums and differences of floats, taken in
+# another order by each package (the free CPU reads 1.8 in one and
+# 1.7999999999999998 in the other): floats compare to 1e-9, rounded to 9
+# decimals before the lists they sit in are sorted.
+_FLOAT_DECIMALS = 9
+
+
 def _strip(obj):
     if isinstance(obj, dict):
         return {k: ("*" if k in _VOLATILE else
@@ -603,6 +610,8 @@ def _strip(obj):
                 for k in obj}
     if isinstance(obj, list):
         return sorted((_strip(x) for x in obj), key=json.dumps)
+    if isinstance(obj, float):
+        return round(obj, _FLOAT_DECIMALS)
     return obj
 
 

@@ -112,6 +112,27 @@ def test_rmsnorm_cuda_kernel_matches_plain(cuda_device, rows, d, dtype):
                   _rmsnorm_plain(xs, w[1:], EPS))
 
 
+@pytest.mark.parametrize("rows,d,dtype", [
+    (8, 4096, "bfloat16"), (64, 4096, "bfloat16"), (8192, 2048, "bfloat16"),
+    (4096, 4096, "bfloat16"), (4096, 2048, "bfloat16"),
+    (8192, 2048, "float32"), (2, 16384, "bfloat16"), (3, 12288, "float32"),
+    (2, 32776, "bfloat16")])
+def test_rmsnorm_fwd_at_the_path_shapes(cuda_device, rows, d, dtype):
+    """The paths' shapes: llama3-8b's decode and prefill rows, the
+    training step's (bf16 and f32), the MoE and the DP steps'; then the
+    widest one-pass row (a 1024-thread group at 16384 in bf16) and rows
+    past the one-pass budget, which take the two-pass kernel."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(rows * 7 + d)
+    x = (torch.randn((rows, d), generator=gen, device=cuda_device) * 3).to(tdt)
+    w = (torch.randn(d, generator=gen, device=cuda_device) * 0.1 + 1).to(tdt)
+    before = rmsnorm_cuda.launches
+    got = rmsnorm_cuda(x, w, EPS)
+    torch.cuda.synchronize()
+    assert rmsnorm_cuda.launches == before + 1
+    _assert_close(got, _rmsnorm_plain(x, w, EPS))
+
+
 def test_rmsnorm_cuda_refuses_bad_input(cuda_device):
     with pytest.raises(TypeError):
         rmsnorm(torch.ones(4, 128, device=cuda_device, dtype=torch.float16),
@@ -1209,6 +1230,65 @@ def test_rl_learner_group_holds_the_card(cuda_device):
             assert torch.equal(torch.from_numpy(w[0]), torch.from_numpy(w[1]))
         finally:
             group.shutdown()
+    finally:
+        rt.shutdown()
+
+
+def test_rl_dqn_restore_loads_the_target_net_onto_each_device(cuda_device,
+                                                               tmp_path):
+    """A DQN checkpoint saved on the CPU restores into a DQN on the card,
+    and one saved on the card into a DQN on the CPU: the target and the
+    online snapshots and both of the algorithm's nets equal the saved
+    trees, each net on its algorithm's device
+    (tests/test_torch_rl_dqn_restore.py holds the same restore against
+    the JAX package on the CPU)."""
+    import numpy as np
+
+    import chip_smoke
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl import DQNConfig
+    from ray_tpu_torch.rl.core import convert
+
+    def build(device):
+        return (DQNConfig()
+                .environment(chip_smoke.CueRecallEnv, obs_dim=3,
+                             num_actions=2)
+                .env_runners(num_env_runners=1, rollout_length=32)
+                .training(train_batch_size=16, updates_per_iteration=4,
+                          learning_starts=32, target_update_freq=2,
+                          device=device)
+                .build())
+
+    def same(a, b):
+        fa, fb = convert.flatten(a), convert.flatten(b)
+        return fa.keys() == fb.keys() and all(
+            np.array_equal(np.asarray(fa[k]), np.asarray(fb[k])) for k in fa)
+
+    rt.init(num_cpus=4)
+    try:
+        for src, dst in (("cpu", None), (None, "cpu")):
+            a = build(src)
+            try:
+                for _ in range(3):
+                    a.train()
+                saved = (a.target_params, a._online_params)
+                a.save(str(tmp_path / str(src)))
+            finally:
+                a.stop()
+            b = build(dst)
+            try:
+                assert b.device.type == ("cpu" if dst else "cuda")
+                assert not same(b.target_params, saved[0])
+                b.restore(str(tmp_path / str(src)))
+                assert same(b.target_params, saved[0])
+                assert same(b._online_params, saved[1])
+                assert same(b._target_net.get_weights(), saved[0])
+                assert same(b._online_net.get_weights(), saved[1])
+                for net in (b._target_net, b._online_net):
+                    assert all(p.device.type == b.device.type
+                               for p in net.parameters())
+            finally:
+                b.stop()
     finally:
         rt.shutdown()
 

@@ -7,6 +7,8 @@ must agree bit for bit within the port. Every engine a test builds is
 shut down by the `engines` fixture.
 """
 
+import gc
+import threading
 import time
 
 import jax
@@ -18,6 +20,7 @@ import torch
 from ray_tpu.models import configs as jax_configs
 from ray_tpu.models import transformer as jax_tf
 from ray_tpu.models.generate import generate as jax_generate
+from ray_tpu.serve.llm import LLMReplica as JaxLLMReplica
 from ray_tpu_torch.exceptions import (
     PromptTooLongError,
     RequestCancelledError,
@@ -270,6 +273,34 @@ def test_full_admission_queue_sheds(engines, tiny, monkeypatch):
     with pytest.raises(ServeOverloadedError):
         eng.submit([1, 2])
     assert eng.stats()["shed_total"] == 1
+
+
+@pytest.mark.parametrize("package", ["ray_tpu", "ray_tpu_torch"])
+def test_a_dropped_replica_stops_its_engine(tiny, package):
+    """A replica built in this process and dropped without shutdown():
+    its finalizer stops the engine, whose thread would otherwise run on,
+    holding the weights and the KV cache (the JAX package's __del__; the
+    port's too)."""
+    jp, jcfg, tp, tcfg = tiny
+    replica, loaded = ((JaxLLMReplica, (jp, jcfg)) if package == "ray_tpu"
+                       else (LLMReplica, (tp, tcfg)))
+
+    def engine_threads():
+        return {t for t in threading.enumerate()
+                if t.name == "llm-engine" and t.is_alive()}
+
+    before = engine_threads()
+    rep = replica(lambda: loaded, num_slots=2, max_len=32,
+                  default_max_new_tokens=4)
+    thread = rep.engine._thread
+    assert thread.is_alive() and thread in engine_threads()
+    del rep
+    gc.collect()
+    deadline = time.monotonic() + 5.0
+    while thread.is_alive() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert not thread.is_alive(), "the dropped replica's engine runs on"
+    assert engine_threads() <= before
 
 
 def test_llm_replica_call_and_stream(tiny):

@@ -396,23 +396,44 @@ def tiny_llama_over_trainer():
 # -- a trial that ASHA stops while its function runs ------------------------------
 def _slow_steps(config):
     tune = importlib.import_module(config["pkg"] + ".tune")
+    d, q = config["dir"], config["q"]
+    with open(os.path.join(d, f"pid_{q}"), "w") as f:
+        f.write(str(os.getpid()))
     for i in range(1, 41):
         time.sleep(0.1)
-        with open(os.path.join(config["dir"], f"q{config['q']}"), "a") as f:
+        with open(os.path.join(d, f"q{q}"), "a") as f:
             f.write(f"{i}\n")
-        tune.report({"score": config["q"] * i})
+        tune.report({"score": q * i, "q": q})
+        # The next step waits for the scheduler to let this report go on
+        # (or for the fit to have returned), so a stopped trial reports
+        # nothing past the step it was stopped at, however late the poll.
+        while not (os.path.exists(os.path.join(d, f"go_{q}_{i}"))
+                   or os.path.exists(os.path.join(d, "released"))):
+            time.sleep(0.01)
 
 
 def stopped_trial_stops():
     d = sub("stopped")
+    schedulers = importlib.import_module(pkg + ".tune.schedulers")
+
+    class Releasing(tune.ASHAScheduler):
+        """ASHA that marks each result it does not stop."""
+
+        def on_result(self, trial_id, result):
+            decision = super().on_result(trial_id, result)
+            if decision != schedulers.STOP:
+                open(os.path.join(d, f"go_{result['q']}_"
+                                     f"{result['training_iteration']}"),
+                     "w").close()
+            return decision
+
     g = tune.Tuner(
         _slow_steps,
         param_space={"q": tune.grid_search([1.0, 0.1]), "pkg": pkg, "dir": d},
         tune_config=tune.TuneConfig(
             metric="score", mode="max", max_concurrent_trials=1,
-            scheduler=tune.ASHAScheduler(metric="score", mode="max",
-                                         grace_period=2, reduction_factor=2,
-                                         max_t=4)),
+            scheduler=Releasing(metric="score", mode="max", grace_period=2,
+                                reduction_factor=2, max_t=4)),
         run_config=RunConfig(name="stopped", storage_path=d)).fit()
 
     def steps():
@@ -420,6 +441,18 @@ def stopped_trial_stops():
             return len(f.read().split())
 
     at_return = steps()
+    # Release the steps only once the stopped trial's process has gone
+    # (or 3 s on): a function that still runs then goes on.
+    with open(os.path.join(d, "pid_0.1")) as f:
+        pid = int(f.read())
+    deadline = time.monotonic() + 3.0
+    while time.monotonic() < deadline:
+        try:
+            os.kill(pid, 0)
+        except OSError:
+            break
+        time.sleep(0.05)
+    open(os.path.join(d, "released"), "w").close()
     time.sleep(1.0)
     return {"reported": [len(r.metrics_history) for r in g],
             "stopped_early": at_return < 40,
@@ -588,10 +621,12 @@ def test_with_resources_overrides_trial_resources(results):
 
 def test_a_stopped_trial_stops_running(results):
     """ASHA stops the second trial at its first rung while its function
-    is still stepping. The port ends the trial's process with it; the
-    JAX package starts the function on a thread of its own, and a killed
-    actor's idle worker is recycled, so the function runs on after the
-    fit has returned."""
+    is still stepping; each step waits for the scheduler to let the one
+    before go on, so the stopped trial reports 2 steps whatever the
+    poll's pace. The port ends the trial's process with it; the JAX
+    package starts the function on a thread of its own, and a killed
+    actor's idle worker is recycled, so the function runs on once the
+    fit has returned and releases the steps."""
     jax_out, port_out = (r["stopped_trial_stops"] for r in results)
     for out in (jax_out, port_out):
         assert out["stopped_early"]
