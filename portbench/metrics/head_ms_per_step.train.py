@@ -1,0 +1,14 @@
+"""head_ms_per_step.train: device ms per training step in the model's
+head (models/transformer.py, the `model.head` span: final norm, lm head,
+cross-entropy, the aux loss's weighting), all three passes. Counted by
+the program's own device spans over the traced steps."""
+
+from portbench import spans
+
+LAYER = "model (models/transformer.py)"
+SOURCE = "program_counter"
+MOVES = "train_tokens_per_s"
+
+
+def read(run):
+    return spans.ms_per_step(run, ("model.head",))

@@ -8,6 +8,8 @@ source rebuilds and an unchanged one is reused. `build_all()` starts one
 `nvcc` per source at once and waits for all of them. nvcc runs with
 `-Xptxas -v`; its log is kept beside the library, and `ptxas_report()`
 reads each kernel's registers, static shared memory and spills from it.
+`build_count()` counts the libraries this process built; the training
+flight recorder reads it into each step's `compiles`.
 
 The runtime's host library, `native/object_store.cc` (the shared-memory
 object store), is built the same way with `g++` by `build_native()`, on
@@ -43,6 +45,7 @@ GXX_LIBS = ["-lpthread", "-lrt"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_builds = 0  # CUDA libraries this process built with nvcc
 
 
 def _nvcc() -> str:
@@ -76,6 +79,7 @@ def _start(name: str) -> tuple:
 
 
 def _finish(name: str, proc, tmp: Path, out: Path, cmd: List[str]) -> None:
+    global _builds
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -84,6 +88,12 @@ def _finish(name: str, proc, tmp: Path, out: Path, cmd: List[str]) -> None:
             f"{' '.join(cmd)}\n{log}")
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
+    _builds += 1
+
+
+def build_count() -> int:
+    """The number of CUDA libraries this process built with nvcc."""
+    return _builds
 
 
 def _native_target(name: str) -> Path:

@@ -50,6 +50,7 @@ from ray_tpu_torch.parallel.moe import moe_layer
 from ray_tpu_torch.parallel.pipeline import pipeline_stages
 from ray_tpu_torch.parallel.ring_attention import ring_attention
 from ray_tpu_torch.parallel.ulysses import ulysses_attention
+from ray_tpu_torch.util.profiling import device_span
 
 
 @dataclass(frozen=True)
@@ -275,6 +276,14 @@ def _embed_tokens(params, tokens: torch.Tensor, cfg: TransformerConfig):
     return x
 
 
+def _embed_span(params, tokens: torch.Tensor, cfg: TransformerConfig):
+    """_embed_tokens in the "model.embed" span. The ids carry no gradient,
+    so the span's backward ends at the weight's."""
+    with device_span("model.embed") as sp:
+        w = sp.entry(params["embed"])
+        return sp.exit(_embed_tokens({"embed": w}, tokens, cfg))
+
+
 def lm_head_weight(params, cfg: TransformerConfig) -> torch.Tensor:
     """[D, V] output projection (the embedding transposed when tied)."""
     if cfg.tie_embeddings:
@@ -336,6 +345,30 @@ def _moe_mlp(cfg: TransformerConfig, h, lp, mesh, seq_sharded: bool):
 def _layer_body(cfg: TransformerConfig, x, lp, cos, sin, positions,
                 mesh=None, seq_sharded: bool = False):
     """One decoder layer, with the reference's casts. Returns (x, aux)."""
+    with device_span("model.attention") as sp:
+        x = sp.entry(x)
+        x = sp.exit(x + _attention_block(cfg, x, lp, cos, sin, positions,
+                                         mesh, seq_sharded).to(x.dtype))
+    with device_span("model.mlp") as sp:
+        x = sp.entry(x)
+        h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+        if cfg.num_experts:
+            mlp_out, aux = _moe_mlp(cfg, h, lp, mesh, seq_sharded)
+            return sp.exit(x + mlp_out.to(x.dtype), aux)
+        act = _act(cfg)
+        h_in = _comm.reduce_grad(h, mesh, ("tp",))
+        gate = act((h_in @ lp["w_gate"]).float())
+        up = (h_in @ lp["w_up"]).float()
+        mlp_out = _comm.all_reduce((gate * up).to(x.dtype) @ lp["w_down"],
+                                   mesh, ("tp",))
+        return (sp.exit(x + mlp_out),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _attention_block(cfg: TransformerConfig, x, lp, cos, sin, positions,
+                     mesh, seq_sharded: bool):
+    """attn norm -> q/k/v -> rope -> attention -> out projection: the
+    layer's attention output, before the residual add."""
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     b, l, _ = h.shape
     tp = axis_size(mesh, "tp")
@@ -364,21 +397,7 @@ def _layer_body(cfg: TransformerConfig, x, lp, cos, sin, positions,
         k, v = (local_shard(t.repeat_interleave(group, dim=2),
                             (None, None, "tp"), mesh) for t in (k, v))
     attn = _attention(cfg, q, k, v, mesh, seq_sharded)
-    attn_out = _comm.all_reduce(attn.reshape(b, l, -1) @ lp["wo"], mesh,
-                                ("tp",))
-    x = x + attn_out.to(x.dtype)
-
-    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    if cfg.num_experts:
-        mlp_out, aux = _moe_mlp(cfg, h, lp, mesh, seq_sharded)
-        return x + mlp_out.to(x.dtype), aux
-    act = _act(cfg)
-    h_in = _comm.reduce_grad(h, mesh, ("tp",))
-    gate = act((h_in @ lp["w_gate"]).float())
-    up = (h_in @ lp["w_up"]).float()
-    mlp_out = _comm.all_reduce((gate * up).to(x.dtype) @ lp["w_down"], mesh,
-                               ("tp",))
-    return x + mlp_out, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _comm.all_reduce(attn.reshape(b, l, -1) @ lp["wo"], mesh, ("tp",))
 
 
 # Ops whose outputs each remat policy saves; everything else is recomputed
@@ -413,20 +432,14 @@ def _remat(body, cfg: TransformerConfig):
                              context_fn=context_fn)
 
 
-def forward(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            mesh=None, positions: Optional[torch.Tensor] = None,
-            return_hidden: bool = False):
-    """Returns (logits [B, L, vocab], aux_loss scalar); with return_hidden,
-    the pre-lm_head hidden states [B, L, D] instead of logits (the
-    chunked-CE loss applies lm_head itself). tokens: [B, L] integers.
-
-    Under a mesh, `params` are the rank's shards and `tokens` its block
-    ([B/(dp*fsdp), L/sp]); the logits (whole vocabulary) are its block
-    too, and aux_loss the whole batch's, the same on every rank."""
+def _trunk(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
+           mesh=None, positions: Optional[torch.Tensor] = None):
+    """The embedding and the layer stack. Returns (the parameters ready to
+    use, the residual stream before the final norm, aux_loss)."""
     seq_sharded = axis_size(mesh, "sp") > 1
     if mesh is not None:
         params = _usable_params(params, cfg, mesh, _comm.DATA_AXES)
-    x = _embed_tokens(params, tokens, cfg)
+    x = _embed_span(params, tokens, cfg)
     cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                            x.device)
     if positions is None and seq_sharded:
@@ -442,15 +455,37 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
     for lp in layer_params(params):
         x, layer_aux = body(x, lp, cos, sin, positions)
         aux = aux + layer_aux
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    if return_hidden:
-        return x, aux
-    return project_logits(x, params, cfg), aux
+    return params, x, aux
 
 
-def forward_pipelined(params: Dict, tokens: torch.Tensor,
-                      cfg: TransformerConfig, mesh, num_microbatches=None):
-    """Pipeline-parallel forward: the layer stack shards over "pp" stages.
+def _head(x, used, cfg: TransformerConfig, tail=None):
+    """The model's head in the "model.head" span: the final norm, then
+    `tail` on its output (the loss), or without one the logits. `used`:
+    the parameters ready to use."""
+    with device_span("model.head") as sp:
+        x = rmsnorm(sp.entry(x), used["final_norm"], cfg.norm_eps)
+        return sp.exit(project_logits(x, used, cfg) if tail is None
+                       else tail(x))
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh=None, positions: Optional[torch.Tensor] = None,
+            return_hidden: bool = False):
+    """Returns (logits [B, L, vocab], aux_loss scalar); with return_hidden,
+    the pre-lm_head hidden states [B, L, D] instead of logits.
+    tokens: [B, L] integers.
+
+    Under a mesh, `params` are the rank's shards and `tokens` its block
+    ([B/(dp*fsdp), L/sp]); the logits (whole vocabulary) are its block
+    too, and aux_loss the whole batch's, the same on every rank."""
+    params, x, aux = _trunk(params, tokens, cfg, mesh, positions)
+    return _head(x, params, cfg, (lambda h: h) if return_hidden else None), aux
+
+
+def _pipelined_trunk(params: Dict, tokens: torch.Tensor,
+                     cfg: TransformerConfig, mesh, num_microbatches=None):
+    """forward_pipelined up to the final norm: (the parameters ready to
+    use, the residual stream). The layer stack shards over "pp" stages.
 
     Each pp rank holds n_layers/S contiguous layers (its shards from
     shard_params) and its batch block of the tokens ([B/(dp*fsdp), L]);
@@ -495,7 +530,7 @@ def forward_pipelined(params: Dict, tokens: torch.Tensor,
     # the tokens.
     params = _usable_params(params, cfg, mesh, ("dp", "fsdp"),
                             keep=("stage",))
-    x = _embed_tokens(params, tokens, cfg)
+    x = _embed_span(params, tokens, cfg)
     cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                            x.device)
     body = functools.partial(_layer_body, cfg, mesh=mesh)
@@ -511,8 +546,15 @@ def forward_pipelined(params: Dict, tokens: torch.Tensor,
     d = x.shape[-1]
     xm = x.reshape(M, b_local // M, l, d)
     ym = pipeline_stages(stage_fn, params["layers"], xm, mesh, axis_name="pp")
-    x = rmsnorm(ym.reshape(b_local, l, d), params["final_norm"], cfg.norm_eps)
-    return (project_logits(x, params, cfg),
+    return params, ym.reshape(b_local, l, d)
+
+
+def forward_pipelined(params: Dict, tokens: torch.Tensor,
+                      cfg: TransformerConfig, mesh, num_microbatches=None):
+    """Pipeline-parallel forward: the layer stack shards over "pp" stages
+    (_pipelined_trunk); returns (logits, a zero aux_loss)."""
+    params, x = _pipelined_trunk(params, tokens, cfg, mesh, num_microbatches)
+    return (_head(x, params, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -531,28 +573,32 @@ def loss_fn(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
     pipelined = axis_size(mesh, "pp") > 1
     data_axes = ("dp", "fsdp") if pipelined else _comm.DATA_AXES
     if pipelined:
-        logits, aux = forward_pipelined(params, inputs, cfg, mesh)
-        loss = softmax_cross_entropy(logits, labels).mean()
+        used, x = _pipelined_trunk(params, inputs, cfg, mesh)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
         if axis_size(mesh, "sp") > 1:
             inputs, labels = (local_shard(t, (None, "sp"), mesh)
                               for t in (inputs, labels))
-        if cfg.ce_chunk:
-            hidden, aux = forward(params, inputs, cfg, mesh,
-                                  return_hidden=True)
-            head = lm_head_weight(params, cfg)
-            if mesh is not None:
-                head = _usable_leaf(head, ("embed", "vocab"), mesh,
-                                    _comm.DATA_AXES)
-            loss = chunked_lm_head_ce(hidden, head, labels, cfg.ce_chunk,
-                                      softcap=cfg.final_logit_softcap)
-        else:
-            logits, aux = forward(params, inputs, cfg, mesh)
-            loss = softmax_cross_entropy(logits, labels).mean()
+        used, x, aux = _trunk(params, inputs, cfg, mesh)
     # Every rank's block holds as many tokens, so the mean over the batch
     # is the sum over the data axes of each block's mean over their count.
     # aux is the whole batch's on every rank: each carries its share.
     n = 1
     for a in data_axes:
         n *= axis_size(mesh, a)
-    return _comm.all_reduce((loss + aux_weight * aux) / n, mesh, data_axes)
+
+    def tail(h):
+        if cfg.ce_chunk and not pipelined:
+            head = lm_head_weight(params, cfg)
+            if mesh is not None:
+                head = _usable_leaf(head, ("embed", "vocab"), mesh,
+                                    _comm.DATA_AXES)
+            loss = chunked_lm_head_ce(h, head, labels, cfg.ce_chunk,
+                                      softcap=cfg.final_logit_softcap)
+        else:
+            loss = softmax_cross_entropy(project_logits(h, used, cfg),
+                                         labels).mean()
+        return _comm.all_reduce((loss + aux_weight * aux) / n, mesh,
+                                data_axes)
+
+    return _head(x, used, cfg, tail)

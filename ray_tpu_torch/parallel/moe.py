@@ -16,10 +16,10 @@ from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ray_tpu_torch.parallel import _comm
 from ray_tpu_torch.parallel.mesh import axis_index, axis_size
+from ray_tpu_torch.util.profiling import device_span
 
 
 def top_k_routing(
@@ -96,10 +96,11 @@ def moe_layer(
     num_experts = router_w.shape[-1]
     capacity = max(1, int(capacity_factor * tokens * k / num_experts))
 
-    # The record_function ranges name the layer's parts in a profile.
-    with record_function("moe.routing"):
-        logits = x @ router_w
-        dispatch, combine, aux_loss = top_k_routing(logits, k, capacity)
+    # The device spans name the layer's parts in a profile and time them.
+    with device_span("moe.routing") as sp:
+        logits = sp.entry(x) @ router_w
+        dispatch, combine, aux_loss = sp.exit(
+            *top_k_routing(logits, k, capacity))
 
     n = axis_size(mesh, axis_name)
     if num_experts % n:
@@ -114,10 +115,12 @@ def moe_layer(
         combine = _comm.reduce_grad(combine, mesh, (axis_name,))[:, mine]
         x = _comm.reduce_grad(x, mesh, (axis_name,))
 
-    with record_function("moe.dispatch"):  # [E, C, D]
-        expert_in = torch.einsum("tec,td->ecd", dispatch, x)
-    with record_function("moe.experts"):
-        expert_out = expert_fn(expert_params, expert_in)
-    with record_function("moe.combine"):  # [T, D]
-        out = torch.einsum("tec,ecd->td", combine, expert_out)
+    with device_span("moe.dispatch") as sp:  # [E, C, D]
+        expert_in = sp.exit(torch.einsum("tec,td->ecd", dispatch,
+                                         sp.entry(x)))
+    with device_span("moe.experts") as sp:
+        expert_out = sp.exit(expert_fn(expert_params, sp.entry(expert_in)))
+    with device_span("moe.combine") as sp:  # [T, D]
+        out = sp.exit(torch.einsum("tec,ecd->td",
+                                   *sp.entry(combine, expert_out)))
     return _comm.all_reduce(out, mesh, (axis_name,)), aux_loss

@@ -5,10 +5,13 @@ The runtime can time tasks, spans, and object transfers — but none of
 that decomposes a slow TRAINING STEP. This module supplies the missing
 layer: a `StepProfiler` the loop wraps around each step that records a
 per-step wall-time breakdown (data-wait, compute, collective, checkpoint,
-other), compile/retrace counts, throughput, and an MFU estimate, into a
-fixed-size ring buffer. Recording is a handful of `perf_counter` reads
-and dict writes per step — cheap enough to leave on in production
-(bench_obs.py pins the overhead; BENCH_OBS.json).
+other), compile/retrace counts (watched callables' caches and the CUDA
+kernels built with nvcc inside the step), throughput, an MFU estimate
+and, while a torch profiler records, the card's milliseconds in each of
+the model's top-level device spans, into a fixed-size ring buffer. Recording
+is a handful of `perf_counter` reads and dict writes per step — cheap
+enough to leave on in production (bench_obs.py pins the overhead;
+BENCH_OBS.json).
 
 Per-rank records ride the existing report/poll stream back to the
 trainer, which computes CROSS-RANK SKEW and names the slowest rank
@@ -50,8 +53,9 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
+from ray_tpu_torch import _build
 from ray_tpu_torch._private import chaos
-from ray_tpu_torch.util import journal
+from ray_tpu_torch.util import journal, profiling
 
 #: Phase keys every record carries (plus "other_s" for the remainder).
 PHASES = ("data", "compute", "collective", "checkpoint")
@@ -178,6 +182,13 @@ def _synchronize(tree: Any) -> None:
         torch.cuda.synchronize(device)
 
 
+def _top_span_ms() -> Dict[str, Dict[str, float]]:
+    """The top-level device spans' cumulative ms per pass."""
+    return {name: {p: t[f"{p}_ms"] for p in profiling.PASSES}
+            for name, t in profiling.device_span_totals().items()
+            if t["top"]}
+
+
 class _StepHandle:
     """The object `with prof.step() as s:` yields — the in-flight step's
     accumulator AND context manager (class-based, not @contextmanager:
@@ -185,9 +196,12 @@ class _StepHandle:
     async-launch gap: it blocks until the card's work on the step's
     tensors is done and attributes the block time to "compute" (without a
     fence, device time still queued on the stream at step exit lands in
-    the NEXT step's wall)."""
+    the NEXT step's wall). While a torch profiler records, the device
+    spans are on (util.profiling.device_span) and the fence also reads
+    their device time, which the card has then finished."""
 
-    __slots__ = ("_prof", "_phases", "tokens", "samples", "_t0", "_prev")
+    __slots__ = ("_prof", "_phases", "tokens", "samples", "_t0", "_prev",
+                 "_builds0", "_device0", "_device_ms")
 
     def __init__(self, prof, tokens=None, samples=None):
         self._prof = prof
@@ -196,10 +210,15 @@ class _StepHandle:
         self.samples = samples
         self._t0 = 0.0
         self._prev = None
+        self._builds0 = 0
+        self._device0 = self._device_ms = None
 
     def __enter__(self):
         self._prev = getattr(_tls, "step", None)
         _tls.step = self
+        self._builds0 = _build.build_count()
+        if profiling.device_spans_on():
+            self._device0 = _top_span_ms()
         self._t0 = time.perf_counter()
         # Chaos straggler injection sleeps INSIDE the timed window — the
         # recorder must see the slowness it models (as other_s: a real
@@ -221,6 +240,12 @@ class _StepHandle:
         self._phases["compute"] = (
             self._phases.get("compute", 0.0) + time.perf_counter() - t0
         )
+        if self._device0 is not None:
+            was = self._device0
+            self._device_ms = {
+                name: {p: v - was.get(name, {}).get(p, 0.0)
+                       for p, v in t.items()}
+                for name, t in _top_span_ms().items()}
 
 
 class _PhaseTimer:
@@ -253,6 +278,10 @@ class StepProfiler:
     emit_metrics: also observe per-step aggregates into rank-tagged
       util.metrics series (what `rt top`/Grafana read). Ring recording
       itself never touches the metrics path.
+
+    While a torch profiler records, each fenced step's record also
+    carries `device_ms`, {span: {"forward", "recompute", "backward"}} in
+    ms, for the device spans entered with no other span open.
 
     Thread discipline: step()/phase() run on the loop thread; summary()
     and drain_records() may be called from another thread (the actor's
@@ -407,12 +436,15 @@ class StepProfiler:
                 rec[f"{k}_s"] = v
                 named += v
         rec["other_s"] = max(wall - named, 0.0)
-        compiles = 0
+        # Retraces of watched callables, and CUDA kernels built mid-step.
+        compiles = _build.build_count() - handle._builds0
         if self._watched:
             n = self._compile_count()
-            compiles = max(n - self._last_compiles, 0)
+            compiles += max(n - self._last_compiles, 0)
             self._last_compiles = n
         rec["compiles"] = compiles
+        if handle._device_ms is not None:
+            rec["device_ms"] = handle._device_ms
         tokens = handle.tokens if handle.tokens is not None else handle.samples
         if tokens is not None and wall > 0:
             rec["tokens"] = tokens
