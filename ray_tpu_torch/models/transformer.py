@@ -318,25 +318,56 @@ def _attention(cfg: TransformerConfig, q, k, v, mesh, seq_sharded: bool):
                        (None, "sp"), mesh)
 
 
+@functools.lru_cache(maxsize=None)
+def _expert_products(dtype: str):
+    """`moe_expert_products_total` and its series key for one operand
+    dtype, made at the first MoE call so that importing the model starts
+    no metrics flusher."""
+    from ray_tpu_torch.util.metrics import Counter, get_or_create
+
+    counter = get_or_create(
+        Counter, "moe_expert_products_total",
+        "Calls of the MoE experts' SwiGLU (one per MoE layer and pass: "
+        "forward, remat's recompute), by the products' operand dtype",
+        tag_keys=("dtype",))
+    return counter, counter._key({"dtype": dtype})
+
+
+def _moe_experts(w, xin, act, mesh=None):
+    """The experts' SwiGLU on their slots: xin [E, C, D] f32 -> [E, C, D]
+    f32, summed over tp.
+
+    The products take their operands in bf16 where the expert weights are
+    bf16, with f32 accumulation, and the activation and gating stay f32:
+    the dense MLP's casts, and how XLA runs the reference's einsums on the
+    MXU. A slot holds one token's row of the bf16 RMSNorm output, or
+    zeros, so casting xin to bf16 is exact. Any other weights take f32
+    operands, the reference's einsums as jnp.einsum promotes them with the
+    f32 xin: every f32 parity test against the JAX package runs there."""
+    dt = torch.bfloat16 if w["down"].dtype == torch.bfloat16 \
+        else torch.float32
+    counter, key = _expert_products(str(dt).removeprefix("torch."))
+    counter.inc_keyed(key)
+    xin = _comm.reduce_grad(xin, mesh, ("tp",)).to(dt)
+    g = act(torch.einsum("ecd,edf->ecf", xin, w["gate"].to(dt)).float())
+    u = torch.einsum("ecd,edf->ecf", xin, w["up"].to(dt)).float()
+    out = torch.einsum("ecf,efd->ecd", (g * u).to(dt), w["down"].to(dt))
+    return _comm.all_reduce(out.float(), mesh, ("tp",))
+
+
 def _moe_mlp(cfg: TransformerConfig, h, lp, mesh, seq_sharded: bool):
-    """The MoE MLP in f32, as the reference runs it. Routing and capacity
-    are over the whole batch: the tokens are gathered over the data axes
-    in global order, and this rank keeps its block of the output."""
-    act = _act(cfg)
+    """The MoE MLP. Routing, dispatch and combine run in f32, as the
+    reference runs them; the expert products in the weights' dtype where
+    that is bf16 (`_moe_experts`). Routing and capacity are over the whole
+    batch: the tokens are gathered over the data axes in global order, and
+    this rank keeps its block of the output."""
     token_spec = (("dp", "fsdp"), "sp" if seq_sharded else None)
     for dim, entry in enumerate(token_spec):
         h = _comm.all_gather(h, mesh, spec_axes(entry), dim, sum_grads=True)
     b, l, d = h.shape
-
-    def expert_fn(w, xin):  # xin: [E, C, D]; jnp.einsum promotes to f32
-        xin = _comm.reduce_grad(xin, mesh, ("tp",))
-        g = act(torch.einsum("ecd,edf->ecf", xin, w["gate"].float()))
-        u = torch.einsum("ecd,edf->ecf", xin, w["up"].float())
-        out = torch.einsum("ecf,efd->ecd", g * u, w["down"].float())
-        return _comm.all_reduce(out, mesh, ("tp",))
-
     out, aux = moe_layer(
-        h.reshape(b * l, d).float(), lp["router"].float(), expert_fn,
+        h.reshape(b * l, d).float(), lp["router"].float(),
+        functools.partial(_moe_experts, act=_act(cfg), mesh=mesh),
         {"gate": lp["w_gate"], "up": lp["w_up"], "down": lp["w_down"]},
         k=cfg.experts_per_token, mesh=mesh)
     return local_shard(out.reshape(b, l, d), token_spec, mesh), aux

@@ -4,9 +4,15 @@ Counterpart of ray_tpu/parallel/moe.py: tokens are routed top-k with a
 capacity factor and dispatched through one-hot dispatch and combine
 tensors (the Switch/GShard formulation). Dispatch and combine stay the
 reference's dense einsums, so every expert slot sums the same terms as
-there. Under an "ep" mesh axis each rank holds E/ep experts: it runs its
-own experts' slots and the expert outputs are summed over ep. Routing
-and capacity are over the whole token set the layer is given, as under
+there. Routing, dispatch and combine take the dtype of `x` (the model
+passes f32); `expert_fn` chooses its own: the model's
+(models/transformer.py `_moe_experts`) takes the products in bf16 with
+f32 accumulation where the expert weights are bf16 (a slot copies one
+token of the bf16 model's activations, so its cast to bf16 is exact),
+and in f32 for any other weights, as the reference's promoted einsums.
+Under an "ep" mesh axis each rank holds E/ep experts: it runs its own
+experts' slots and the expert outputs are summed over ep. Routing and
+capacity are over the whole token set the layer is given, as under
 GSPMD, so every rank routes every token alike.
 """
 

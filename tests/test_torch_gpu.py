@@ -33,7 +33,10 @@ where the reference vanishes, as dq and dk of a single key do, no
 element above 1e-5). dq, dk, dv and the RMSNorm backward's dx and dw are
 summed without atomics, so two calls on the same inputs give the same
 bits. The training step: loss within rtol 2e-4, each gradient leaf
-within rtol=atol=2e-3 and a relative L2 error of at most 1e-3.
+within rtol=atol=2e-3 and a relative L2 error of at most 1e-3. A bf16
+MoE step with its expert products in bf16 against the same step with
+f32 experts: loss within rtol 1e-3, each gradient leaf within a relative
+L2 error of 2e-2 (the test's docstring gives the reason).
 """
 
 import dataclasses
@@ -345,55 +348,89 @@ def test_loss_and_grads_on_card_match_cpu(cuda_device, remat):
         assert float((g.cpu() - gc).norm() / gc.norm()) <= 1e-3
 
 
-def test_moe_step_on_card_matches_cpu(cuda_device, monkeypatch):
-    """One MoE training step (mixtral's layout narrowed: d 256, 4 experts,
-    2 layers, head_dim 64, GQA) through the kernels against the same f32
-    step on the CPU: the same expert assignment in every routing call,
-    then the loss and every gradient, the router's included."""
+def _moe_step(cfg, device, seed, expert_dtype=None):
+    """One MoE training step from init_params(cfg, seed), the expert
+    weights held in `expert_dtype` where given: the loss, each leaf's
+    gradient in f32 and each routing call's dispatch mask, on the host."""
     from ray_tpu_torch.parallel import moe
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(configs.mixtral_8x7b, d_model=256, n_heads=4,
-                              n_kv_heads=2, d_ff=512, num_experts=4,
-                              n_layers=2, vocab_size=1024, max_seq=256,
-                              dtype=torch.float32)
     tokens = torch.randint(0, cfg.vocab_size, (2, 129),
-                           generator=torch.Generator().manual_seed(4))
-    masks = []
-    orig = moe.top_k_routing
+                           generator=torch.Generator().manual_seed(seed))
+    params = init_params(cfg, seed=seed, device="cpu")
+    if expert_dtype is not None:
+        for k in ("w_gate", "w_up", "w_down"):
+            params["layers"][k] = params["layers"][k].to(expert_dtype)
+    keys = sorted(params["layers"])
+    flat = [params["embed"], params["lm_head"], params["final_norm"],
+            *(params["layers"][k] for k in keys)]
+    flat = [t.to(device).requires_grad_(True) for t in flat]
+    p = {"embed": flat[0], "lm_head": flat[1], "final_norm": flat[2],
+         "layers": dict(zip(keys, flat[3:]))}
+    masks, orig = [], moe.top_k_routing
 
     def logged(logits, k, capacity):
         out = orig(logits, k, capacity)
         masks.append(out[0].detach().cpu())
         return out
 
-    monkeypatch.setattr(moe, "top_k_routing", logged)
-
-    def step(device):
-        params = init_params(cfg, seed=4, device="cpu")
-        keys = sorted(params["layers"])
-        flat = [params["embed"], params["lm_head"], params["final_norm"],
-                *(params["layers"][k] for k in keys)]
-        flat = [t.to(device).requires_grad_(True) for t in flat]
-        p = {"embed": flat[0], "lm_head": flat[1], "final_norm": flat[2],
-             "layers": dict(zip(keys, flat[3:]))}
-        del masks[:]
+    moe.top_k_routing = logged
+    try:
         loss = loss_fn(p, tokens.to(device), cfg)
         loss.backward()
-        assert float(p["layers"]["router"].grad.abs().sum()) > 0
-        return loss, [t.grad for t in flat], list(masks)
+    finally:
+        moe.top_k_routing = orig
+    assert float(p["layers"]["router"].grad.abs().sum()) > 0
+    return (loss.detach().float().cpu(),
+            [t.grad.float().cpu() for t in flat], masks)
 
-    loss, grads, routed = step(cuda_device)
-    torch.cuda.synchronize()
-    loss_cpu, grads_cpu, routed_cpu = step("cpu")
+
+def test_moe_step_on_card_matches_cpu(cuda_device):
+    """One MoE training step (mixtral's layout narrowed: d 256, 4 experts,
+    2 layers, head_dim 64, GQA) through the kernels against the same f32
+    step on the CPU: the same expert assignment in every routing call,
+    then the loss and every gradient, the router's included."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.mixtral_8x7b, d_model=256, n_heads=4,
+                              n_kv_heads=2, d_ff=512, num_experts=4,
+                              n_layers=2, vocab_size=1024, max_seq=256,
+                              dtype=torch.float32)
+    loss, grads, routed = _moe_step(cfg, cuda_device, 4)
+    loss_cpu, grads_cpu, routed_cpu = _moe_step(cfg, "cpu", 4)
     # Each layer routes in the forward and again in remat's recompute.
     assert len(routed) == len(routed_cpu) == 2 * cfg.n_layers
     for a, b in zip(routed, routed_cpu):
         assert torch.equal(a, b)
-    torch.testing.assert_close(loss.cpu(), loss_cpu, rtol=2e-4, atol=0)
+    torch.testing.assert_close(loss, loss_cpu, rtol=2e-4, atol=0)
     for g, gc in zip(grads, grads_cpu):
-        torch.testing.assert_close(g.cpu(), gc, rtol=2e-3, atol=2e-3)
-        assert float((g.cpu() - gc).norm() / gc.norm()) <= 1e-3
+        torch.testing.assert_close(g, gc, rtol=2e-3, atol=2e-3)
+        assert float((g - gc).norm() / gc.norm()) <= 1e-3
+
+
+def test_bf16_moe_step_on_card_matches_f32_experts(cuda_device):
+    """A bf16 MoE step on the card (mixtral's layout narrowed as above, one
+    layer) with the expert products in bf16 (f32 accumulation) against the
+    same step with the expert weights held in f32, which takes the f32
+    einsums. One layer, so the router reads the same activations in both
+    and routes alike (asserted, the forward and remat's recompute). Both
+    products see the same bf16 values; the bf16 path rounds the gated
+    product before w_down and the incoming gradients in the backward to
+    bf16, each within 2^-9 of its value, and these differences reach
+    every leaf through the residual stream. So the loss is within rtol
+    1e-3 and each gradient leaf within a relative L2 error of 2e-2, five
+    units of bf16's roundoff 2^-8 (the same step on the CPU reads at most
+    6.2e-3)."""
+    cfg = dataclasses.replace(configs.mixtral_8x7b, d_model=256, n_heads=4,
+                              n_kv_heads=2, d_ff=512, num_experts=4,
+                              n_layers=1, vocab_size=1024, max_seq=256)
+    loss, grads, routed = _moe_step(cfg, cuda_device, 21)
+    loss_f32, grads_f32, routed_f32 = _moe_step(cfg, cuda_device, 21,
+                                                torch.float32)
+    assert len(routed) == len(routed_f32) == 2
+    for a, b in zip(routed, routed_f32):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(loss, loss_f32, rtol=1e-3, atol=0)
+    for g, gf in zip(grads, grads_f32):
+        assert float((g - gf).norm() / gf.norm()) <= 2e-2
 
 
 def test_parallel_primitives_on_a_one_rank_nccl_mesh(cuda_device, tmp_path):

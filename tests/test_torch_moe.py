@@ -15,6 +15,11 @@ Tolerances, f32: dispatch masks exactly, combine weights within 1e-6;
 outputs, logits and losses within rtol 1e-4 (atol 1e-6); gradients
 within rtol 1e-3, atol 1e-5. The sharded forwards: 2e-3, the reference
 tests' tolerance for GSPMD.
+
+The experts' operand dtype: with f32 weights the model's expert SwiGLU
+is the f32 einsums bit for bit; with bf16 weights it is the dense MLP's
+bf16 products taken per expert, within bf16's rounding, with no f32 copy
+of a weight; moe_expert_products_total counts each call by that dtype.
 """
 
 import dataclasses
@@ -25,11 +30,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ray_tpu.models import configs as jax_configs
 from ray_tpu.models import transformer as jax_tf
 from ray_tpu.parallel import moe as jax_moe
-from ray_tpu_torch.models import configs, forward, loss_fn, params_from_jax
+from ray_tpu_torch.models import (configs, forward, init_params, loss_fn,
+                                  params_from_jax)
+from ray_tpu_torch.models import transformer as tf
 from ray_tpu_torch.models.transformer import param_shapes
 from ray_tpu_torch.parallel import moe as torch_moe
 
@@ -233,6 +242,130 @@ def test_sharded_moe_model_matches_unsharded(ranks, case):
                 rec[f"{case}/grad/{name}"],
                 cases.np_block(g, specs[name], sizes, coords), rtol=1e-3,
                 atol=1e-5, err_msg=name)
+
+
+# -- the experts' operand dtype ----------------------------------------------
+def _expert_inputs(dtype):
+    """Slots as moe_layer hands them over: f32 rows that bf16 holds
+    exactly, the last slot of each expert empty; weights in `dtype`. The
+    widths differ from every slot shape, so no activation has a weight's
+    shape."""
+    gen = torch.Generator().manual_seed(21)
+    e, c, d, f = 3, 5, 48, 80
+    xin = torch.randn((e, c, d), generator=gen).bfloat16().float()
+    xin[:, -1] = 0
+    w = {n: (torch.randn(s, generator=gen) * 0.05).to(dtype)
+         for n, s in (("gate", (e, d, f)), ("up", (e, d, f)),
+                      ("down", (e, f, d)))}
+    return xin, w, torch.randn((e, c, d), generator=gen)
+
+
+def _dense_mlp_experts(w, xin):
+    """Each expert as the dense MLP takes its products (transformer.py's
+    `_layer_body`): bf16 operands, f32 activation and gating."""
+    outs = []
+    for e in range(xin.shape[0]):
+        x = xin[e].bfloat16()
+        gate = F.silu((x @ w["gate"][e]).float())
+        up = (x @ w["up"][e]).float()
+        outs.append(((gate * up).bfloat16() @ w["down"][e]).float())
+    return torch.stack(outs)
+
+
+def _f32_einsum_experts(w, xin):
+    """The f32 experts as the port took them before the bf16 path, and as
+    the reference's promoted jnp.einsums."""
+    g = F.silu(torch.einsum("ecd,edf->ecf", xin, w["gate"].float()))
+    u = torch.einsum("ecd,edf->ecf", xin, w["up"].float())
+    return torch.einsum("ecf,efd->ecd", g * u, w["down"].float())
+
+
+def _run(fn, xin, w, ct):
+    """fn's output and the gradients of xin and each weight, on fresh
+    leaves, with every op's output (dtype, shape) in the forward and the
+    backward recorded."""
+    xin = xin.clone().requires_grad_(True)
+    w = {n: t.clone().requires_grad_(True) for n, t in w.items()}
+    with _OpOutputs() as ops:
+        out = fn(w, xin)
+        (out * ct).sum().backward()
+    return out.detach(), xin.grad, {n: t.grad for n, t in w.items()}, ops
+
+
+class _OpOutputs(TorchDispatchMode):
+    """The (dtype, shape) of every tensor an aten op returns."""
+
+    def __enter__(self):
+        self.seen = set()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.seen.add((t.dtype, tuple(t.shape)))
+        return out
+
+
+def test_bf16_experts_take_the_dense_mlps_products():
+    """bf16 weights: the output and every gradient are the dense MLP's
+    casts applied per expert, within bf16's rounding (2^-8 relative: the
+    batched and the per-expert products may sum in another order, and
+    each rounds its bf16 result); no f32 tensor of a weight's shape
+    exists in the forward or the backward, and the weights' gradients are
+    bf16. The f32 einsums on the same bf16 weights make such copies, so
+    the check sees them."""
+    xin, w, ct = _expert_inputs(torch.bfloat16)
+    got = _run(functools.partial(tf._moe_experts, act=F.silu), xin, w, ct)
+    want = _run(_dense_mlp_experts, xin, w, ct)
+    tol = {"rtol": 1e-2, "atol": 1e-3}
+    torch.testing.assert_close(got[0], want[0], **tol)
+    torch.testing.assert_close(got[1], want[1], **tol)
+    for n in w:
+        assert got[2][n].dtype == torch.bfloat16
+        torch.testing.assert_close(got[2][n].float(), want[2][n].float(),
+                                   **tol, msg=n)
+    weight_f32 = {(torch.float32, tuple(t.shape)) for t in w.values()}
+    assert not got[3].seen & weight_f32
+    assert _run(_f32_einsum_experts, xin, w, ct)[3].seen & weight_f32
+
+
+def test_f32_experts_are_the_f32_einsums():
+    """f32 weights: the output and every gradient bit for bit the f32
+    einsums', the path every parity test against the JAX package runs."""
+    xin, w, ct = _expert_inputs(torch.float32)
+    got = _run(functools.partial(tf._moe_experts, act=F.silu), xin, w, ct)
+    want = _run(_f32_einsum_experts, xin, w, ct)
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a, b)
+    for n in w:
+        assert torch.equal(got[2][n], want[2][n]), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("remat", [False, True])
+def test_expert_products_counted_per_layer_and_pass(dtype, remat):
+    """moe_expert_products_total counts one call per MoE layer and pass
+    (the forward, and remat's recompute in the backward) under the
+    operand dtype the weights choose, and none under the other."""
+    cfg = dataclasses.replace(configs.tiny_moe, dtype=dtype, remat=remat)
+    params = init_params(cfg, seed=3, device="cpu")
+    for t in cases.flat(params).values():
+        t.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9),
+                           generator=torch.Generator().manual_seed(3))
+    counters = {t: tf._expert_products(t) for t in ("float32", "bfloat16")}
+
+    def counts():
+        return {t: c._deltas.get(key, 0.0) for t, (c, key) in counters.items()}
+
+    before = counts()
+    loss_fn(params, tokens, cfg).backward()
+    after = counts()
+    calls = cfg.n_layers * (2 if remat else 1)
+    assert {t: after[t] - before[t] for t in counters} == {
+        t: calls if t == str(dtype).removeprefix("torch.") else 0
+        for t in counters}
 
 
 def test_mixtral_shapes_match_reference():
