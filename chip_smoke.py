@@ -400,6 +400,13 @@ FLASH_DESIGN = {"flash_fwd": _TENSOR_CORES, "flash_bwd_dq": _TENSOR_CORES,
                 "flash_bwd_dkv": _TENSOR_CORES}
 RMS_BWD_ROWS = (1, 5, 8192)
 RMS_BWD_DIMS = (128, 2048, 4096)
+# The latent-attention training cell's shapes (mistral-small-4, batch 4 x
+# 8192), checked in bf16: the RMSNorms of the latent q (1024 wide) and kv
+# (256 wide) on 32,768 rows, and flash causal at 8192 with the model's
+# softmax scale on a slice of the batch and heads (heads are independent;
+# the plain version's f32 scores then take 1 GiB).
+MLA_RMS_SHAPES = ((32768, 1024), (32768, 256))
+MLA_FLASH_CASE = (True, 8192, 8192, 128, 1, 4)
 
 
 def emit(obj) -> None:
@@ -514,29 +521,27 @@ def phase_kernels():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cases, max_abs = [], 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        for d in KERNEL_DIMS:
-            for rows in KERNEL_ROWS:
-                x = (torch.randn((rows, d), generator=gen, device=dev)
-                     * 3).to(dtype)
-                w = (torch.randn(d, generator=gen, device=dev) * 0.1
-                     + 1).to(dtype)
-                got = rmsnorm_cuda(x, w, EPS)
-                want = _rmsnorm_plain(x, w, EPS)
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                max_abs = max(max_abs, err)
-                if dtype == torch.float32:
-                    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
-                    case = {"tol": "rtol=atol=1e-5"}
-                else:
-                    ulp = bf16_ulp_diff(got, want)
-                    ok = ulp <= 1
-                    case = {"tol": "1 bf16 ulp", "ulp": ulp}
-                case.update({"dtype": str(dtype).split(".")[-1],
-                             "rows": rows, "d": d, "max_abs_err": err,
-                             "ok": ok})
-                cases.append(case)
+    shapes = [(dtype, rows, d) for dtype in (torch.bfloat16, torch.float32)
+              for d in KERNEL_DIMS for rows in KERNEL_ROWS]
+    shapes += [(torch.bfloat16, rows, d) for rows, d in MLA_RMS_SHAPES]
+    for dtype, rows, d in shapes:
+        x = (torch.randn((rows, d), generator=gen, device=dev) * 3).to(dtype)
+        w = (torch.randn(d, generator=gen, device=dev) * 0.1 + 1).to(dtype)
+        got = rmsnorm_cuda(x, w, EPS)
+        want = _rmsnorm_plain(x, w, EPS)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        max_abs = max(max_abs, err)
+        if dtype == torch.float32:
+            ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+            case = {"tol": "rtol=atol=1e-5"}
+        else:
+            ulp = bf16_ulp_diff(got, want)
+            ok = ulp <= 1
+            case = {"tol": "1 bf16 ulp", "ulp": ulp}
+        case.update({"dtype": str(dtype).split(".")[-1], "rows": rows,
+                     "d": d, "max_abs_err": err, "ok": ok})
+        cases.append(case)
     timed = rmsnorm_fwd_timed(SERVE_FWD_SHAPES)
     max_abs = max([max_abs] + [r["max_abs_err"] for r in timed])
     emit({"phase": "kernels", "name": "rmsnorm_fwd",
@@ -1010,6 +1015,8 @@ def phase_train_kernels():
                                                    flash_bwd_dkv_cuda,
                                                    flash_bwd_dq_cuda,
                                                    flash_fwd_cuda)
+    from ray_tpu_torch.models import configs
+    from ray_tpu_torch.models.transformer import mla_softmax_scale
     from ray_tpu_torch.ops.rmsnorm import _rmsnorm_bwd_plain, rmsnorm_bwd_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1033,53 +1040,57 @@ def phase_train_kernels():
         rec.update(case, kernel=name, max_abs_err=e, ok=ok)
         cases.append(rec)
 
+    def rms_case(dtype, rows, d):
+        x = (torch.randn((rows, d), generator=gen, device=dev) * 3).to(dtype)
+        w = (torch.randn(d, generator=gen, device=dev) * 0.1 + 1).to(dtype)
+        g = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+        dx, dw = rmsnorm_bwd_cuda(x, w, g, EPS)
+        torch.cuda.synchronize()
+        want = _rmsnorm_bwd_plain(x.float(), w.float(), g.float(), EPS)
+        case = {"dtype": str(dtype).split(".")[-1], "rows": rows, "d": d}
+        judge("rmsnorm_bwd", dx, want[0], dtype, 1e-4, dict(case, out="dx"))
+        judge("rmsnorm_bwd", dw, want[1], dtype, 1e-4, dict(case, out="dw"))
+
+    def flash_case(dtype, causal, lq, lk, d, b, h, scale=None):
+        def rand(n):
+            return torch.randn((b, n, h, d), generator=gen,
+                               device=dev).to(dtype)
+        q, k, v, do = rand(lq), rand(lk), rand(lk), rand(lq)
+        o, lse = flash_fwd_cuda(q, k, v, causal, scale)
+        delta = _delta(o, do)
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        f = [t.float() for t in (q, k, v, do)]
+        o_ref, lse_ref = _flash_fwd_plain(f[0], f[1], f[2], causal, scale)
+        dq_ref = _flash_bwd_dq_plain(f[0], f[1], f[2], f[3], lse, delta,
+                                     causal, scale)
+        dk_ref, dv_ref = _flash_bwd_dkv_plain(f[0], f[1], f[2], f[3], lse,
+                                              delta, causal, scale)
+        case = {"dtype": str(dtype).split(".")[-1], "causal": causal,
+                "b": b, "h": h, "lq": lq, "lk": lk, "d": d}
+        if scale is not None:
+            case["scale"] = scale
+        judge("flash_fwd", o, o_ref, dtype, 2e-4, dict(case, out="o"))
+        judge("flash_fwd", lse, lse_ref, torch.float32, 2e-4,
+              dict(case, out="lse"))
+        judge("flash_bwd_dq", dq, dq_ref, dtype, 2e-3, dict(case, out="dq"))
+        judge("flash_bwd_dkv", dk, dk_ref, dtype, 2e-3, dict(case, out="dk"))
+        judge("flash_bwd_dkv", dv, dv_ref, dtype, 2e-3, dict(case, out="dv"))
+        del q, k, v, do, o, lse, delta, dq, dk, dv, f, o_ref, dq_ref
+        del dk_ref, dv_ref
+        torch.cuda.empty_cache()
+
     for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype).split(".")[-1]
         for d in RMS_BWD_DIMS:
             for rows in RMS_BWD_ROWS:
-                x = (torch.randn((rows, d), generator=gen, device=dev)
-                     * 3).to(dtype)
-                w = (torch.randn(d, generator=gen, device=dev) * 0.1
-                     + 1).to(dtype)
-                g = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
-                dx, dw = rmsnorm_bwd_cuda(x, w, g, EPS)
-                torch.cuda.synchronize()
-                want = _rmsnorm_bwd_plain(x.float(), w.float(), g.float(), EPS)
-                case = {"dtype": dn, "rows": rows, "d": d}
-                judge("rmsnorm_bwd", dx, want[0], dtype, 1e-4,
-                      dict(case, out="dx"))
-                judge("rmsnorm_bwd", dw, want[1], dtype, 1e-4,
-                      dict(case, out="dw"))
-        for causal, lq, lk, d, b, h in FLASH_CASES:
-            def rand(n):
-                return torch.randn((b, n, h, d), generator=gen,
-                                   device=dev).to(dtype)
-            q, k, v, do = rand(lq), rand(lk), rand(lk), rand(lq)
-            o, lse = flash_fwd_cuda(q, k, v, causal)
-            delta = _delta(o, do)
-            dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
-            dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
-            torch.cuda.synchronize()
-            f = [t.float() for t in (q, k, v, do)]
-            o_ref, lse_ref = _flash_fwd_plain(f[0], f[1], f[2], causal)
-            dq_ref = _flash_bwd_dq_plain(f[0], f[1], f[2], f[3], lse, delta,
-                                         causal)
-            dk_ref, dv_ref = _flash_bwd_dkv_plain(f[0], f[1], f[2], f[3],
-                                                  lse, delta, causal)
-            case = {"dtype": dn, "causal": causal, "b": b, "h": h, "lq": lq,
-                    "lk": lk, "d": d}
-            judge("flash_fwd", o, o_ref, dtype, 2e-4, dict(case, out="o"))
-            judge("flash_fwd", lse, lse_ref, torch.float32, 2e-4,
-                  dict(case, out="lse"))
-            judge("flash_bwd_dq", dq, dq_ref, dtype, 2e-3,
-                  dict(case, out="dq"))
-            judge("flash_bwd_dkv", dk, dk_ref, dtype, 2e-3,
-                  dict(case, out="dk"))
-            judge("flash_bwd_dkv", dv, dv_ref, dtype, 2e-3,
-                  dict(case, out="dv"))
-            del q, k, v, do, o, lse, delta, dq, dk, dv, f, o_ref, dq_ref
-            del dk_ref, dv_ref
-            torch.cuda.empty_cache()
+                rms_case(dtype, rows, d)
+        for fc in FLASH_CASES:
+            flash_case(dtype, *fc)
+    for rows, d in MLA_RMS_SHAPES:
+        rms_case(torch.bfloat16, rows, d)
+    flash_case(torch.bfloat16, *MLA_FLASH_CASE,
+               scale=mla_softmax_scale(configs.mistral_small_4))
     bad = [c for c in cases if not c["ok"]]
     emit({"phase": "train_kernels", "all_ok": not bad, "max_abs_err": err,
           "cases": cases})
@@ -1502,23 +1513,25 @@ def _moe_split(prof) -> dict:
 
 
 class _DispatchLog:
-    """Keeps each top_k_routing call's dispatch mask on the host."""
+    """Keeps each routing call's experts and slots on the host."""
 
     def __init__(self):
         from ray_tpu_torch.parallel import moe
 
-        self.mod, self.orig, self.masks = moe, moe.top_k_routing, []
+        self.mod, self.orig, self.masks = moe, moe.route, []
 
     def __enter__(self):
-        def logged(logits, k, capacity):
-            d, c, a = self.orig(logits, k, capacity)
-            self.masks.append(d.detach().cpu())
-            return d, c, a
-        self.mod.top_k_routing = logged
+        import torch
+
+        def logged(logits, k, capacity, *args, **kwargs):
+            out = self.orig(logits, k, capacity, *args, **kwargs)
+            self.masks.append(torch.stack(out[:2]).cpu())
+            return out
+        self.mod.route = logged
         return self
 
     def __exit__(self, *exc):
-        self.mod.top_k_routing = self.orig
+        self.mod.route = self.orig
 
 
 def _moe_parity() -> dict:

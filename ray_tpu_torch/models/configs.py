@@ -181,6 +181,75 @@ qwen3_4b = TransformerConfig(
     tie_embeddings=True,
 )
 
+# Mistral-Small-4-119B-2603's text decoder (its config.json: DeepSeek-V3's
+# layer, arXiv:2412.19437): multi-head latent attention with YaRN rope,
+# 128 experts of width 2048, top-4 by sigmoid scores with a correction
+# bias, renormalised gates, and one shared expert in every layer.
+mistral_small_4 = TransformerConfig(
+    vocab_size=131072,
+    d_model=4096,
+    n_layers=36,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=12288,
+    max_seq=1048576,
+    rope_theta=10000.0,
+    norm_eps=1e-6,
+    num_experts=128,
+    experts_per_token=4,
+    q_lora_rank=1024,
+    kv_lora_rank=256,
+    qk_nope_dim=64,
+    qk_rope_dim=64,
+    v_head_dim=128,
+    rope_type="yarn",
+    rope_factor=128.0,
+    rope_original_max=8192,
+    beta_fast=32.0,
+    beta_slow=1.0,
+    mscale=1.0,
+    mscale_all_dim=1.0,
+    rope_interleave=True,
+    llama4_scaling_beta=0.1,
+    n_shared_experts=1,
+    moe_d_ff=2048,
+    router="sigmoid_bias",
+    norm_topk_prob=True,
+    routed_scaling_factor=1.0,
+)
+
+# mistral_small_4's layer at toy widths: the YaRN ramp and the llama-4
+# query scale both act within 32 positions.
+tiny_mla = TransformerConfig(
+    vocab_size=256,
+    d_model=64,
+    n_layers=2,
+    n_heads=4,
+    n_kv_heads=4,
+    d_ff=128,
+    max_seq=128,
+    dtype=torch.float32,
+    remat=False,
+    num_experts=8,
+    experts_per_token=2,
+    q_lora_rank=32,
+    kv_lora_rank=16,
+    qk_nope_dim=8,
+    qk_rope_dim=8,
+    v_head_dim=16,
+    rope_type="yarn",
+    rope_factor=4.0,
+    rope_original_max=16,
+    mscale=1.0,
+    mscale_all_dim=1.0,
+    rope_interleave=True,
+    llama4_scaling_beta=0.1,
+    n_shared_experts=1,
+    moe_d_ff=32,
+    router="sigmoid_bias",
+    norm_topk_prob=True,
+)
+
 NAMED_CONFIGS = {
     "tiny": tiny,
     "tiny_gqa": tiny_gqa,
@@ -195,6 +264,8 @@ NAMED_CONFIGS = {
     "mixtral-8x7b": mixtral_8x7b,
     "tiny_qwen": tiny_qwen,
     "qwen3-4b": qwen3_4b,
+    "mistral-small-4": mistral_small_4,
+    "tiny_mla": tiny_mla,
 }
 
 

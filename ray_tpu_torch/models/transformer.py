@@ -41,7 +41,8 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.ops import apply_rope, flash_attention, rmsnorm
 from ray_tpu_torch.ops.cross_entropy import (chunked_lm_head_ce,
                                              softmax_cross_entropy)
-from ray_tpu_torch.ops.rope import rope_tables
+from ray_tpu_torch.ops.rope import (deinterleave, rope_tables, yarn_mscale,
+                                    yarn_tables)
 from ray_tpu_torch.parallel import _comm
 from ray_tpu_torch.parallel.mesh import (axis_index, axis_size,
                                          local_shard, logical_to_physical,
@@ -89,10 +90,59 @@ class TransformerConfig:
     # Qwen3-style QK-norm (arXiv:2505.09388) and an explicit head width.
     qk_norm: bool = False
     custom_head_dim: int = 0
+    # Multi-head latent attention (DeepSeek-V2/V3, arXiv:2405.04434), on
+    # where kv_lora_rank > 0: keys and values from a kv_lora_rank-wide
+    # latent, queries from a q_lora_rank-wide one;
+    # q/k heads are qk_nope_dim + qk_rope_dim wide (rope on the last
+    # qk_rope_dim, k's rope part one head broadcast to all), v heads
+    # v_head_dim wide.
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # RoPE scaling: "default", or "yarn" (arXiv:2309.00071) with its
+    # factor, original context, ramp (beta_fast, beta_slow) and
+    # temperatures (mscale, mscale_all_dim; the softmax scale takes
+    # mscale_all_dim's squared). rope_interleave: the checkpoint rotates
+    # interleaved pairs. llama4_scaling_beta: queries at position p are
+    # scaled by 1 + beta * ln(1 + floor(p / rope_original_max)).
+    rope_type: str = "default"
+    rope_factor: float = 1.0
+    rope_original_max: int = 0
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+    rope_interleave: bool = False
+    llama4_scaling_beta: float = 0.0
+    # MoE beyond Mixtral's: shared experts beside the routed ones, expert
+    # width (0: d_ff), the router ("softmax" or DeepSeek-V3's
+    # "sigmoid_bias"), renormalised and scaled gates, and the block of
+    # expert ids this card holds (None: all of them).
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    router: str = "softmax"
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    experts_held: Optional[range] = None
 
     @property
     def head_dim(self) -> int:
         return self.custom_head_dim or self.d_model // self.n_heads
+
+    @property
+    def mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
+    def n_experts_held(self) -> int:
+        return (self.num_experts if self.experts_held is None
+                else len(self.experts_held))
 
 
 def _dense_init(gen: torch.Generator, shape, scale: float, dtype,
@@ -103,21 +153,38 @@ def _dense_init(gen: torch.Generator, shape, scale: float, dtype,
 
 def param_shapes(cfg: TransformerConfig) -> Dict:
     """The parameter tree's shapes: key -> (shape, init scale), where a
-    scale of None means ones (the norm weights). Layer leaves carry the
-    stacked leading [L] axis."""
+    scale of None means ones (the norm weights) and 0.0 zeros (the
+    router's correction bias). Layer leaves carry the stacked leading [L]
+    axis; the experts' leaves hold the experts the card holds."""
     d, h, kvh, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                          cfg.head_dim, cfg.d_ff)
     L = cfg.n_layers
     scale = d ** -0.5
     out_scale = scale * (2 * L) ** -0.5
-    layer = {
-        "attn_norm": ((L, d), None),
-        "wq": ((L, d, h * hd), scale),
-        "wk": ((L, d, kvh * hd), scale),
-        "wv": ((L, d, kvh * hd), scale),
-        "wo": ((L, h * hd, d), out_scale),
-        "mlp_norm": ((L, d), None),
-    }
+    if cfg.mla:
+        qk, q_rank, kv_rank = (cfg.qk_nope_dim + cfg.qk_rope_dim,
+                               cfg.q_lora_rank, cfg.kv_lora_rank)
+        layer = {
+            "attn_norm": ((L, d), None),
+            "wq_a": ((L, d, q_rank), scale),
+            "q_a_norm": ((L, q_rank), None),
+            "wq_b": ((L, q_rank, h * qk), q_rank ** -0.5),
+            "wkv_a": ((L, d, kv_rank + cfg.qk_rope_dim), scale),
+            "kv_a_norm": ((L, kv_rank), None),
+            "wkv_b": ((L, kv_rank, h * (cfg.qk_nope_dim + cfg.v_head_dim)),
+                      kv_rank ** -0.5),
+            "wo": ((L, h * cfg.v_head_dim, d), out_scale),
+            "mlp_norm": ((L, d), None),
+        }
+    else:
+        layer = {
+            "attn_norm": ((L, d), None),
+            "wq": ((L, d, h * hd), scale),
+            "wk": ((L, d, kvh * hd), scale),
+            "wv": ((L, d, kvh * hd), scale),
+            "wo": ((L, h * hd, d), out_scale),
+            "mlp_norm": ((L, d), None),
+        }
     if cfg.qk_norm:
         layer["q_norm"] = ((L, hd), None)
         layer["k_norm"] = ((L, hd), None)
@@ -126,11 +193,18 @@ def param_shapes(cfg: TransformerConfig) -> Dict:
         layer["w_up"] = ((L, d, ff), scale)
         layer["w_down"] = ((L, ff, d), out_scale)
     else:
-        E = cfg.num_experts
+        E, held, fe = cfg.num_experts, cfg.n_experts_held, cfg.expert_d_ff
         layer["router"] = ((L, d, E), scale)
-        layer["w_gate"] = ((L, E, d, ff), scale)
-        layer["w_up"] = ((L, E, d, ff), scale)
-        layer["w_down"] = ((L, E, ff, d), out_scale)
+        if cfg.router == "sigmoid_bias":
+            layer["router_bias"] = ((L, E), 0.0)  # zeros, never trained
+        layer["w_gate"] = ((L, held, d, fe), scale)
+        layer["w_up"] = ((L, held, d, fe), scale)
+        layer["w_down"] = ((L, held, fe, d), out_scale)
+        if cfg.n_shared_experts:
+            fs = cfg.n_shared_experts * fe
+            layer["w_shared_gate"] = ((L, d, fs), scale)
+            layer["w_shared_up"] = ((L, d, fs), scale)
+            layer["w_shared_down"] = ((L, fs, d), out_scale)
     shapes = {
         "embed": ((cfg.vocab_size, d), 1.0),
         "layers": layer,
@@ -153,6 +227,8 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None) -> Dict:
     def leaf(shape, scale, stacked):
         if scale is None:
             return torch.ones(shape, dtype=cfg.dtype, device=device)
+        if scale == 0.0:
+            return torch.zeros(shape, dtype=cfg.dtype, device=device)
         if not stacked:
             return _dense_init(gen, shape, scale, cfg.dtype, device)
         # One layer at a time: the f32 draw never exists for the stack.
@@ -175,14 +251,27 @@ def param_logical_axes(cfg: TransformerConfig) -> Dict:
     Mapped through parallel.mesh.DEFAULT_RULES: "embed"->fsdp, "mlp"/
     "heads"/"vocab"->tp, "expert"->ep, layer-stack axis -> "stage" (pp).
     """
-    layer = {
-        "attn_norm": ("stage", None),
-        "wq": ("stage", "embed", "heads"),
-        "wk": ("stage", "embed", "heads"),
-        "wv": ("stage", "embed", "heads"),
-        "wo": ("stage", "heads", "embed"),
-        "mlp_norm": ("stage", None),
-    }
+    if cfg.mla:
+        layer = {
+            "attn_norm": ("stage", None),
+            "wq_a": ("stage", "embed", None),
+            "q_a_norm": ("stage", None),
+            "wq_b": ("stage", None, "heads"),
+            "wkv_a": ("stage", "embed", None),
+            "kv_a_norm": ("stage", None),
+            "wkv_b": ("stage", None, "heads"),
+            "wo": ("stage", "heads", "embed"),
+            "mlp_norm": ("stage", None),
+        }
+    else:
+        layer = {
+            "attn_norm": ("stage", None),
+            "wq": ("stage", "embed", "heads"),
+            "wk": ("stage", "embed", "heads"),
+            "wv": ("stage", "embed", "heads"),
+            "wo": ("stage", "heads", "embed"),
+            "mlp_norm": ("stage", None),
+        }
     if cfg.qk_norm:
         layer["q_norm"] = ("stage", None)
         layer["k_norm"] = ("stage", None)
@@ -203,6 +292,12 @@ def param_logical_axes(cfg: TransformerConfig) -> Dict:
                 "w_down": ("stage", "expert", "mlp", "embed"),
             }
         )
+        if cfg.router == "sigmoid_bias":
+            layer["router_bias"] = ("stage", None)
+        if cfg.n_shared_experts:
+            layer.update({"w_shared_gate": ("stage", "embed", "mlp"),
+                          "w_shared_up": ("stage", "embed", "mlp"),
+                          "w_shared_down": ("stage", "mlp", "embed")})
     axes = {
         "embed": ("vocab", "embed"),
         "layers": layer,
@@ -355,12 +450,25 @@ def _moe_experts(w, xin, act, mesh=None):
     return _comm.all_reduce(out.float(), mesh, ("tp",))
 
 
+def _swiglu(cfg: TransformerConfig, h, w_gate, w_up, w_down, mesh):
+    """The dense MLP with the reference's casts: products in the weights'
+    dtype, the activation and gating in f32; split over tp, with the
+    all-reduce after w_down."""
+    act = _act(cfg)
+    h_in = _comm.reduce_grad(h, mesh, ("tp",))
+    gate = act((h_in @ w_gate).float())
+    up = (h_in @ w_up).float()
+    return _comm.all_reduce((gate * up).to(h.dtype) @ w_down, mesh, ("tp",))
+
+
 def _moe_mlp(cfg: TransformerConfig, h, lp, mesh, seq_sharded: bool):
     """The MoE MLP. Routing, dispatch and combine run in f32, as the
     reference runs them; the expert products in the weights' dtype where
     that is bf16 (`_moe_experts`). Routing and capacity are over the whole
     batch: the tokens are gathered over the data axes in global order, and
-    this rank keeps its block of the output."""
+    this rank keeps its block of the output. The shared experts run on
+    this rank's tokens, as the dense MLP does."""
+    h_local = h
     token_spec = (("dp", "fsdp"), "sp" if seq_sharded else None)
     for dim, entry in enumerate(token_spec):
         h = _comm.all_gather(h, mesh, spec_axes(entry), dim, sum_grads=True)
@@ -369,8 +477,19 @@ def _moe_mlp(cfg: TransformerConfig, h, lp, mesh, seq_sharded: bool):
         h.reshape(b * l, d).float(), lp["router"].float(),
         functools.partial(_moe_experts, act=_act(cfg), mesh=mesh),
         {"gate": lp["w_gate"], "up": lp["w_up"], "down": lp["w_down"]},
-        k=cfg.experts_per_token, mesh=mesh)
-    return local_shard(out.reshape(b, l, d), token_spec, mesh), aux
+        k=cfg.experts_per_token, mesh=mesh, router=cfg.router,
+        router_bias=lp.get("router_bias"),
+        norm_topk_prob=cfg.norm_topk_prob,
+        routed_scaling_factor=cfg.routed_scaling_factor,
+        experts_held=cfg.experts_held)
+    out = local_shard(out.reshape(b, l, d), token_spec, mesh)
+    if cfg.n_shared_experts:
+        with device_span("moe.shared") as sp:
+            shared = sp.exit(_swiglu(cfg, sp.entry(h_local),
+                                     lp["w_shared_gate"], lp["w_shared_up"],
+                                     lp["w_shared_down"], mesh))
+        out = out + shared
+    return out, aux
 
 
 def _layer_body(cfg: TransformerConfig, x, lp, cos, sin, positions,
@@ -386,12 +505,8 @@ def _layer_body(cfg: TransformerConfig, x, lp, cos, sin, positions,
         if cfg.num_experts:
             mlp_out, aux = _moe_mlp(cfg, h, lp, mesh, seq_sharded)
             return sp.exit(x + mlp_out.to(x.dtype), aux)
-        act = _act(cfg)
-        h_in = _comm.reduce_grad(h, mesh, ("tp",))
-        gate = act((h_in @ lp["w_gate"]).float())
-        up = (h_in @ lp["w_up"]).float()
-        mlp_out = _comm.all_reduce((gate * up).to(x.dtype) @ lp["w_down"],
-                                   mesh, ("tp",))
+        mlp_out = _swiglu(cfg, h, lp["w_gate"], lp["w_up"], lp["w_down"],
+                          mesh)
         return (sp.exit(x + mlp_out),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -401,6 +516,8 @@ def _attention_block(cfg: TransformerConfig, x, lp, cos, sin, positions,
     """attn norm -> q/k/v -> rope -> attention -> out projection: the
     layer's attention output, before the residual add."""
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    if cfg.mla:
+        return _mla_block(cfg, h, lp, cos, sin, mesh, seq_sharded)
     b, l, _ = h.shape
     tp = axis_size(mesh, "tp")
     if cfg.n_heads % tp:
@@ -429,6 +546,68 @@ def _attention_block(cfg: TransformerConfig, x, lp, cos, sin, positions,
                             (None, None, "tp"), mesh) for t in (k, v))
     attn = _attention(cfg, q, k, v, mesh, seq_sharded)
     return _comm.all_reduce(attn.reshape(b, l, -1) @ lp["wo"], mesh, ("tp",))
+
+
+def _mla_block(cfg: TransformerConfig, h, lp, cos, sin, mesh,
+               seq_sharded: bool):
+    """Multi-head latent attention on the normed h [b, l, d], as
+    DeepSeek-V3 computes it: q = W_qb RMSNorm(W_qa h); [c_kv, k_pe] =
+    W_kva h; [k_nope, v] = W_kvb RMSNorm(c_kv), per head; rope on the
+    last qk_rope_dim of q and on k_pe, one head broadcast to all; q and k
+    are [nope, rope]. cos, sin: tables of the rope dimensions for
+    positions 0..l-1."""
+    if axis_size(mesh, "tp") > 1 or seq_sharded:
+        raise ValueError("latent attention (MLA) runs without a tp or sp "
+                         "split")
+    b, l, _ = h.shape
+    H, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    eps = cfg.norm_eps
+    with device_span("mla.latent") as sp:
+        h = sp.entry(h)
+        q = rmsnorm(h @ lp["wq_a"], lp["q_a_norm"], eps) @ lp["wq_b"]
+        q_nope, q_pe = q.view(b, l, H, dn + dr).split([dn, dr], dim=-1)
+        c_kv, k_pe = (h @ lp["wkv_a"]).split([cfg.kv_lora_rank, dr], dim=-1)
+        kv = rmsnorm(c_kv, lp["kv_a_norm"], eps) @ lp["wkv_b"]
+        k_nope, v = kv.view(b, l, H, dn + dv).split([dn, dv], dim=-1)
+        q_pe, k_pe = (apply_rope(deinterleave(t) if cfg.rope_interleave
+                                 else t, cos, sin)
+                      for t in (q_pe, k_pe.view(b, l, 1, dr)))
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([k_nope, k_pe.expand(b, l, H, dr)], dim=-1)
+        if cfg.llama4_scaling_beta and l > cfg.rope_original_max:
+            pos = torch.arange(l, device=h.device)
+            q = q * (1 + cfg.llama4_scaling_beta * torch.log1p(torch.div(
+                pos, cfg.rope_original_max, rounding_mode="floor")
+                .float()))[None, :, None, None].to(q.dtype)
+        q, k, v = sp.exit(q, k, v)
+    attn = flash_attention(q, k, v, causal=True, scale=mla_softmax_scale(cfg))
+    return attn.reshape(b, l, H * dv) @ lp["wo"]
+
+
+def mla_softmax_scale(cfg: TransformerConfig) -> float:
+    """(qk_nope_dim + qk_rope_dim)^-0.5, times YaRN's mscale_all_dim
+    temperature squared (DeepSeek-V3's softmax scale)."""
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    if cfg.rope_type == "yarn" and cfg.mscale_all_dim:
+        scale *= yarn_mscale(cfg.rope_factor, cfg.mscale_all_dim) ** 2
+    return scale
+
+
+def _rope_cos_sin(cfg: TransformerConfig, length: int, device):
+    """The rope tables a forward over positions 0..length-1 uses: YaRN's
+    over the rope dimensions, built for the job's positions, or the
+    default tables of the whole head up to max_seq."""
+    if cfg.rope_type == "yarn":
+        return yarn_tables(cfg.qk_rope_dim if cfg.mla else cfg.head_dim,
+                           length, cfg.rope_theta, cfg.rope_factor,
+                           cfg.rope_original_max, cfg.beta_fast,
+                           cfg.beta_slow, cfg.mscale, cfg.mscale_all_dim,
+                           device)
+    if cfg.rope_type != "default":
+        raise ValueError(f"unknown rope_type {cfg.rope_type!r}")
+    return rope_tables(cfg.qk_rope_dim if cfg.mla else cfg.head_dim,
+                       cfg.max_seq, cfg.rope_theta, device)
 
 
 # Ops whose outputs each remat policy saves; everything else is recomputed
@@ -470,9 +649,11 @@ def _trunk(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
     seq_sharded = axis_size(mesh, "sp") > 1
     if mesh is not None:
         params = _usable_params(params, cfg, mesh, _comm.DATA_AXES)
+    if cfg.rope_type == "yarn" and (positions is not None or seq_sharded):
+        raise ValueError("YaRN rope tables are built for positions "
+                         "0..L-1 of an unsplit sequence")
     x = _embed_span(params, tokens, cfg)
-    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
-                           x.device)
+    cos, sin = _rope_cos_sin(cfg, tokens.shape[1], x.device)
     if positions is None and seq_sharded:
         # RoPE and the causal mask take global positions.
         b, l = tokens.shape
@@ -562,8 +743,7 @@ def _pipelined_trunk(params: Dict, tokens: torch.Tensor,
     params = _usable_params(params, cfg, mesh, ("dp", "fsdp"),
                             keep=("stage",))
     x = _embed_span(params, tokens, cfg)
-    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
-                           x.device)
+    cos, sin = _rope_cos_sin(cfg, l, x.device)
     body = functools.partial(_layer_body, cfg, mesh=mesh)
     if cfg.remat:
         body = _remat(body, cfg)

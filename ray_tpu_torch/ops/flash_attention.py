@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import re
+from typing import Optional
 
 import torch
 
@@ -51,19 +52,25 @@ def _valid(lq: int, lk: int, causal: bool, device) -> torch.Tensor:
     return q_pos >= k_pos
 
 
-def _scores(q, k, causal):
-    """f32 scores [b, h, lq, lk] of the reference kernels: q scaled by
-    d^-0.5 before the product, masked entries at NEG_INF."""
-    scale = q.shape[-1] ** -0.5
+def _scale(q, scale):
+    """The softmax scale: `scale`, or d^-0.5 where it is None."""
+    return q.shape[-1] ** -0.5 if scale is None else scale
+
+
+def _scores(q, k, causal, scale=None):
+    """f32 scores [b, h, lq, lk] of the reference kernels: q scaled (by
+    d^-0.5 unless `scale` is given) before the product, masked entries at
+    NEG_INF."""
+    scale = _scale(q, scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     return s.masked_fill(~_valid(q.shape[1], k.shape[1], causal, q.device),
                          NEG_INF)
 
 
-def _flash_fwd_plain(q, k, v, causal: bool = True):
+def _flash_fwd_plain(q, k, v, causal: bool = True, scale=None):
     """(o [b, lq, h, d] in q's dtype, lse [b, h, lq] f32), as
     `_flash_fwd_kernel` computes them."""
-    s = _scores(q, k, causal)
+    s = _scores(q, k, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
@@ -73,30 +80,32 @@ def _flash_fwd_plain(q, k, v, causal: bool = True):
     return o.to(q.dtype), lse
 
 
-def _probs(q, k, lse, causal):
+def _probs(q, k, lse, causal, scale=None):
     """p = exp(s - lse) with the forward's scores and lse [b, h, lq]."""
-    return torch.exp(_scores(q, k, causal) - lse[..., None])
+    return torch.exp(_scores(q, k, causal, scale) - lse[..., None])
 
 
-def _flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True):
+def _flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True,
+                        scale=None):
     """dq in q's dtype, as `_flash_bwd_dq_kernel` computes it. lse, delta:
     f32 [b, h, lq]."""
-    p = _probs(q, k, lse, causal)
+    p = _probs(q, k, lse, causal, scale)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     ds = p * (dp - delta[..., None])
-    dq = q.shape[-1] ** -0.5 * torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dq = _scale(q, scale) * torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     return dq.to(q.dtype)
 
 
-def _flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True):
+def _flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
+                         scale=None):
     """(dk, dv) in k's and v's dtypes, as `_flash_bwd_dkv_kernel` computes
     them."""
-    p = _probs(q, k, lse, causal)
+    p = _probs(q, k, lse, causal, scale)
     dof = do.float()
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
     ds = p * (dp - delta[..., None])
-    dk = q.shape[-1] ** -0.5 * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dk = _scale(q, scale) * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -106,18 +115,19 @@ def _delta(o, do):
     return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool = True):
+def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool = True, scale=None):
     """(dq, dk, dv) in q's, k's and v's dtypes, as `_bwd_pallas` computes
     them: delta = rowsum(do * o) in f32, then the two kernels' math."""
     delta = _delta(o, do)
-    dq = _flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)
-    return (dq, *_flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal))
+    dq = _flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    return (dq, *_flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                      scale))
 
 
-def flash_attention_plain(q, k, v, causal: bool = True):
+def flash_attention_plain(q, k, v, causal: bool = True, scale=None):
     """`_flash_attention_xla`: softmax attention in f32, differentiable by
     autograd. q, k, v: [b, L, h, d] with as many heads in k, v as in q."""
-    scale = q.shape[-1] ** -0.5
+    scale = _scale(q, scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         s = s.masked_fill(~_valid(q.shape[1], k.shape[1], True, q.device),
@@ -197,18 +207,18 @@ def _strides(*ts):
     return (ctypes.c_int64 * len(vals))(*vals)
 
 
-def _launch(name: str, ptrs, q, k, strides, causal: bool) -> None:
+def _launch(name: str, ptrs, q, k, strides, causal: bool, scale) -> None:
     b, lq, h, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel(name, len(ptrs))(*ptrs, b, h, lq, k.shape[1], d,
                                    ctypes.cast(strides, ctypes.c_void_p),
-                                   float(d ** -0.5), int(causal),
+                                   float(_scale(q, scale)), int(causal),
                                    _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{name} CUDA kernel launch failed: cudaError {err}")
 
 
-def flash_fwd_cuda(q, k, v, causal: bool = True):
+def flash_fwd_cuda(q, k, v, causal: bool = True, scale=None):
     """The forward kernel on q's current stream: (o [b, lq, h, d] in q's
     dtype, lse [b, h, lq] f32). q: [b, lq, h, d]; k, v: [b, lk, h, d]."""
     _check("flash_fwd_cuda", q, k, v)
@@ -219,7 +229,7 @@ def flash_fwd_cuda(q, k, v, causal: bool = True):
     strides = _strides(q, k, v, o)
     _launch("rt_flash_fwd", [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              o.data_ptr(), lse.data_ptr()],
-            q, k, strides, causal)
+            q, k, strides, causal, scale)
     flash_fwd_cuda.launches += 1
     return o, lse
 
@@ -227,7 +237,8 @@ def flash_fwd_cuda(q, k, v, causal: bool = True):
 flash_fwd_cuda.launches = 0
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True):
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True,
+                      scale=None):
     """The dq kernel: dq [b, lq, h, d] in q's dtype. lse, delta: f32
     [b, h, lq]."""
     _check("flash_bwd_dq_cuda", q, k, v)
@@ -239,7 +250,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True):
     _launch("rt_flash_bwd_dq", [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 do.data_ptr(), lse.data_ptr(),
                                 delta.data_ptr(), dq.data_ptr()],
-            q, k, strides, causal)
+            q, k, strides, causal, scale)
     flash_bwd_dq_cuda.launches += 1
     return dq
 
@@ -247,7 +258,8 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True):
 flash_bwd_dq_cuda.launches = 0
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True,
+                       scale=None):
     """The dk/dv kernel: (dk, dv) [b, lk, h, d] in k's dtype."""
     _check("flash_bwd_dkv_cuda", q, k, v)
     _check_bwd("flash_bwd_dkv_cuda", q, do, lse, delta)
@@ -260,7 +272,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
                                  do.data_ptr(), lse.data_ptr(),
                                  delta.data_ptr(), dk.data_ptr(),
                                  dv.data_ptr()],
-            q, k, strides, causal)
+            q, k, strides, causal, scale)
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv
 
@@ -311,23 +323,23 @@ def _device_of(q) -> str:
     return q.device.type
 
 
-def flash_fwd(q, k, v, causal: bool = True):
+def flash_fwd(q, k, v, causal: bool = True, scale=None):
     """(o, lse): the kernel on a CUDA tensor, the plain version on a CPU
     one."""
     if _device_of(q) == "cuda":
-        return flash_fwd_cuda(q, k, v, causal)
-    return _flash_fwd_plain(q, k, v, causal)
+        return flash_fwd_cuda(q, k, v, causal, scale)
+    return _flash_fwd_plain(q, k, v, causal, scale)
 
 
-def flash_bwd(q, k, v, o, lse, do, causal: bool = True):
+def flash_bwd(q, k, v, o, lse, do, causal: bool = True, scale=None):
     """(dq, dk, dv): the two kernels on a CUDA tensor, the plain version on
     a CPU one."""
     if _device_of(q) == "cuda":
         delta = _delta(o, do)
-        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
-        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
         return dq, dk, dv
-    return _flash_bwd_plain(q, k, v, o, lse, do, causal)
+    return _flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -335,22 +347,25 @@ class _FlashAttention(torch.autograd.Function):
     lse); the backward recomputes p from lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = flash_fwd(q, k, v, causal)
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_fwd(q, k, v, causal, scale)
+        ctx.causal, ctx.scale = causal, scale
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.to(o.dtype), ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.to(o.dtype), ctx.causal,
+                               ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """Fused attention. q, k, v: [batch, seq, heads, head_dim].
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Fused attention. q, k, v: [batch, seq, heads, head_dim]. `scale`
+    multiplies the scores before the softmax: head_dim^-0.5 by default.
 
     GQA/MQA: when k and v have fewer heads than q they are repeated per
     group before the kernels (autograd sums the group gradients back).
@@ -360,5 +375,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
     if _device_of(q) == "cuda":
-        return _FlashAttention.apply(q, k, v, causal)
-    return flash_attention_plain(q, k, v, causal)
+        return _FlashAttention.apply(q, k, v, causal, scale)
+    return flash_attention_plain(q, k, v, causal, scale)

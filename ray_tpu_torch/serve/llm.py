@@ -604,6 +604,11 @@ class ContinuousBatchingEngine:
                     f"the mesh's tp={axis_size(mesh, 'tp')} must divide "
                     f"n_kv_heads={cfg.n_kv_heads}"
                 )
+        if cfg.mla:
+            raise ValueError(
+                "the serving engine does not run multi-head latent "
+                "attention (MLA): it has no latent KV cache; the config "
+                f"has kv_lora_rank={cfg.kv_lora_rank}")
         self._tp = axis_size(mesh, "tp")
         self.tp_rank = axis_index(mesh, "tp")
         # Plans flow only once both sides have warmed up alike.

@@ -198,7 +198,8 @@ class _StepHandle:
     fence, device time still queued on the stream at step exit lands in
     the NEXT step's wall). While a torch profiler records, the device
     spans are on (util.profiling.device_span) and the fence also reads
-    their device time, which the card has then finished."""
+    their device time, which the card has then finished, and the MoE
+    layers' routed-assignment counts (parallel.moe.routed_assignments)."""
 
     __slots__ = ("_prof", "_phases", "tokens", "samples", "_t0", "_prev",
                  "_builds0", "_device0", "_device_ms")
@@ -246,6 +247,9 @@ class _StepHandle:
                 name: {p: v - was.get(name, {}).get(p, 0.0)
                        for p, v in t.items()}
                 for name, t in _top_span_ms().items()}
+            moe = sys.modules.get("ray_tpu_torch.parallel.moe")
+            if moe is not None:  # moe_routed_assignments_total
+                moe.routed_assignments()
 
 
 class _PhaseTimer:

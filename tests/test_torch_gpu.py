@@ -351,7 +351,8 @@ def test_loss_and_grads_on_card_match_cpu(cuda_device, remat):
 def _moe_step(cfg, device, seed, expert_dtype=None):
     """One MoE training step from init_params(cfg, seed), the expert
     weights held in `expert_dtype` where given: the loss, each leaf's
-    gradient in f32 and each routing call's dispatch mask, on the host."""
+    gradient in f32 and each routing call's experts and slots, on the
+    host."""
     from ray_tpu_torch.parallel import moe
 
     tokens = torch.randint(0, cfg.vocab_size, (2, 129),
@@ -366,22 +367,23 @@ def _moe_step(cfg, device, seed, expert_dtype=None):
     flat = [t.to(device).requires_grad_(True) for t in flat]
     p = {"embed": flat[0], "lm_head": flat[1], "final_norm": flat[2],
          "layers": dict(zip(keys, flat[3:]))}
-    masks, orig = [], moe.top_k_routing
+    masks, orig = [], moe.route
 
-    def logged(logits, k, capacity):
-        out = orig(logits, k, capacity)
-        masks.append(out[0].detach().cpu())
+    def logged(logits, k, capacity, *args, **kwargs):
+        out = orig(logits, k, capacity, *args, **kwargs)
+        masks.append(torch.stack(out[:2]).cpu())  # experts and slots
         return out
 
-    moe.top_k_routing = logged
+    moe.route = logged
     try:
         loss = loss_fn(p, tokens.to(device), cfg)
         loss.backward()
     finally:
-        moe.top_k_routing = orig
+        moe.route = orig
     assert float(p["layers"]["router"].grad.abs().sum()) > 0
     return (loss.detach().float().cpu(),
-            [t.grad.float().cpu() for t in flat], masks)
+            [t.grad.float().cpu() for t in flat if t.grad is not None],
+            masks)
 
 
 def test_moe_step_on_card_matches_cpu(cuda_device):
@@ -404,6 +406,61 @@ def test_moe_step_on_card_matches_cpu(cuda_device):
     for g, gc in zip(grads, grads_cpu):
         torch.testing.assert_close(g, gc, rtol=2e-3, atol=2e-3)
         assert float((g - gc).norm() / gc.norm()) <= 1e-3
+
+
+def test_mla_moe_step_on_card_matches_cpu(cuda_device):
+    """One step of the latent-attention model with DeepSeek-style experts
+    (tiny_mla widened to the card's head widths: q/k heads 64 + 64, v 128;
+    a card's 4 of 8 experts; remat full) through the kernels against the
+    same f32 step on the CPU: the same experts and slots in every routing
+    call, then the loss and every gradient within the MoE step's
+    tolerances."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.tiny_mla, d_model=256, n_heads=2,
+                              n_kv_heads=2, q_lora_rank=64, kv_lora_rank=32,
+                              qk_nope_dim=64, qk_rope_dim=64, v_head_dim=128,
+                              experts_held=range(2, 6), remat=True)
+    loss, grads, routed = _moe_step(cfg, cuda_device, 5)
+    loss_cpu, grads_cpu, routed_cpu = _moe_step(cfg, "cpu", 5)
+    assert len(routed) == len(routed_cpu) == 2 * cfg.n_layers
+    for a, b in zip(routed, routed_cpu):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(loss, loss_cpu, rtol=2e-4, atol=0)
+    for g, gc in zip(grads, grads_cpu):
+        torch.testing.assert_close(g, gc, rtol=2e-3, atol=2e-3)
+        assert float((g - gc).norm() / gc.norm()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_take_the_softmax_scale(cuda_device, dtype):
+    """A softmax scale other than head_dim^-0.5 (latent attention's, 2.2058
+    times it) reaches the forward, dq and dk/dv kernels: each matches the
+    plain version at that scale within the tolerances above."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    scale = 2.2058 * 128 ** -0.5
+
+    def rand():
+        return torch.randn((2, 300, 4, 128), generator=gen,
+                           device=cuda_device).to(tdt)
+
+    q, k, v, do = rand(), rand(), rand(), rand()
+    o, lse = flash_fwd_cuda(q, k, v, True, scale)
+    delta = _delta(o, do)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, True, scale)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale)
+    f = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = _flash_fwd_plain(f[0], f[1], f[2], True, scale)
+    grads_ref = _flash_bwd_plain(f[0], f[1], f[2], o.float(), lse, f[3],
+                                 True, scale)
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-4, atol=2e-4)
+    if dtype == "float32":
+        torch.testing.assert_close(o, o_ref, rtol=2e-4, atol=2e-4)
+        for got, ref in zip((dq, dk, dv), grads_ref):
+            torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3)
+    else:
+        for got, ref in zip((o, dq, dk, dv), (o_ref, *grads_ref)):
+            _assert_bf16_close(got, ref)
 
 
 def test_bf16_moe_step_on_card_matches_f32_experts(cuda_device):

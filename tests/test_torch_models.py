@@ -40,7 +40,12 @@ def test_every_named_config_maps(name):
     assert configs.get_config(name) is tcfg
     jf = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
     tf_ = {f.name: getattr(tcfg, f.name) for f in dataclasses.fields(tcfg)}
-    assert set(jf) == set(tf_)
+    # The port's own fields (latent attention, YaRN, DeepSeek-style MoE)
+    # keep their defaults, today's behaviour, in every config JAX names.
+    assert set(jf) <= set(tf_)
+    for f in dataclasses.fields(tcfg):
+        if f.name not in jf:
+            assert tf_[f.name] == f.default, (name, f.name)
     for k, v in jf.items():
         if k == "dtype":
             assert tf_[k] == _DTYPES[v], name

@@ -244,7 +244,7 @@ def test_flash_attention_matches_jax_pallas(causal, lq, lk, h, hk, d):
     # function does.
     ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
     kr, vr = (t.repeat_interleave(h // hk, dim=2) for t in ts[1:])
-    out = _FlashAttention.apply(ts[0], kr, vr, causal)
+    out = _FlashAttention.apply(ts[0], kr, vr, causal, None)
     (out * torch.from_numpy(ct)).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), want_o, rtol=2e-4,
                                atol=2e-4)

@@ -133,22 +133,26 @@ def _coord_rec(prefix, coords):
 
 
 class _RecordDispatch:
-    """Wraps parallel.moe.top_k_routing to keep each call's dispatch."""
+    """Wraps parallel.moe.route to keep each call's routing as the
+    reference's one-hot dispatch mask."""
 
     def __init__(self):
         self.masks = []
-        self.orig = moe_mod.top_k_routing
+        self.orig = moe_mod.route
 
     def __enter__(self):
-        def wrapped(logits, k, capacity):
-            d, c, a = self.orig(logits, k, capacity)
-            self.masks.append(d.detach().numpy().copy())
-            return d, c, a
-        moe_mod.top_k_routing = wrapped
+        def wrapped(logits, k, capacity, *args, **kwargs):
+            out = self.orig(logits, k, capacity, *args, **kwargs)
+            expert, slot, gate, _ = out
+            d, _ = moe_mod.dense_masks(expert, slot, gate.detach(),
+                                       logits.shape[-1], capacity)
+            self.masks.append(d.numpy().copy())
+            return out
+        moe_mod.route = wrapped
         return self
 
     def __exit__(self, *exc):
-        moe_mod.top_k_routing = self.orig
+        moe_mod.route = self.orig
 
 
 def _model_case(name, table, out):
@@ -266,3 +270,34 @@ def moe_layer_inputs():
 
 def moe_expert_fn(w, xin):  # xin: [E, C, D]
     return torch.einsum("ecd,edf->ecf", xin, w)
+
+
+# -- a card's share of the experts, split over ep ----------------------------
+MLA_MOE = {"tokens": 48, "d": 16, "experts": 8}
+MLA_MOE_ROUTING = {"k": 3, "router": "sigmoid_bias", "norm_topk_prob": True,
+                   "routed_scaling_factor": 2.5}
+
+
+def mla_moe_inputs():
+    """x, router, the correction bias, the experts' weights and a
+    cotangent for moe_layer with DeepSeek-style routing."""
+    t, d, e = MLA_MOE["tokens"], MLA_MOE["d"], MLA_MOE["experts"]
+    return (rand(31, (t, d)), rand(32, (d, e), 0.3), rand(33, (e,), 0.5),
+            rand(34, (e, d, d), 0.1), rand(35, (t, d)))
+
+
+def mla_moe_cases(rank: int, world: int) -> dict:
+    """moe_layer with the experts split over ep = world: each rank's
+    output and gradients."""
+    mesh, coords = _mesh(MeshConfig(ep=world))
+    x, router, bias, w, ct = mla_moe_inputs()
+    e, n = coords["ep"], MLA_MOE["experts"] // world
+    xt = torch.from_numpy(x).requires_grad_(True)
+    rt = torch.from_numpy(router).requires_grad_(True)
+    wt = torch.from_numpy(w[e * n:(e + 1) * n].copy()).requires_grad_(True)
+    y, _ = moe_layer(xt, rt, moe_expert_fn, wt, mesh=mesh,
+                     router_bias=torch.from_numpy(bias), **MLA_MOE_ROUTING)
+    (y * torch.from_numpy(ct)).sum().backward()
+    return {"coord": np.array(e), "y": y.detach().numpy(),
+            "dx": xt.grad.numpy(), "drouter": rt.grad.numpy(),
+            "dw": wt.grad.numpy()}
