@@ -394,10 +394,13 @@ FLASH_CASES = ((True, 1, 1, 128, 2, 3), (True, 7, 7, 64, 2, 3),
                (False, 1024, 129, 128, 1, 4), (True, 1024, 1024, 128, 8, 16),
                (True, 200, 1000, 128, 2, 3), (True, 1000, 200, 256, 2, 3),
                (False, 1000, 129, 64, 2, 3))
-# How each flash pass multiplies, by dtype.
-_TENSOR_CORES = "bf16: mma.sync tensor cores; f32: CUDA cores"
-FLASH_DESIGN = {"flash_fwd": _TENSOR_CORES, "flash_bwd_dq": _TENSOR_CORES,
-                "flash_bwd_dkv": _TENSOR_CORES}
+# How each flash pass multiplies, by (dtype, head_dim): the design
+# rt_flash_design names and flash_kernel_launches_total counts.
+_BY_CLASS = {"bfloat16": {64: "wgmma", 128: "wgmma", 256: "mma_sync"},
+             "float32": {64: "cuda_cores", 128: "cuda_cores",
+                         256: "cuda_cores"}}
+FLASH_DESIGN = {"flash_fwd": _BY_CLASS, "flash_bwd_dq": _BY_CLASS,
+                "flash_bwd_dkv": _BY_CLASS}
 RMS_BWD_ROWS = (1, 5, 8192)
 RMS_BWD_DIMS = (128, 2048, 4096)
 # The latent-attention training cell's shapes (mistral-small-4, batch 4 x
@@ -837,14 +840,27 @@ def phase_parity():
     check(close, f"card logits differ from the CPU's by {err}")
 
 
+def flash_launches_by_design() -> dict:
+    """flash_kernel_launches_total's counts, {(pass, design): n}."""
+    from ray_tpu_torch.ops.flash_attention import DESIGNS, launch_counter
+
+    out = {}
+    for p_ in FLASH_DESIGN:
+        for d_ in DESIGNS:
+            counter, key = launch_counter(p_, d_)
+            out[(p_, d_)] = counter._deltas.get(key, 0.0)
+    return out
+
+
 def causal_pairs(lq: int, lk: int) -> int:
     """(q, k) pairs a top-left causal mask keeps: q_pos >= k_pos."""
     return sum(min(i + 1, lk) for i in range(lq))
 
 
-def _flash_timed(q, k, v, do) -> tuple:
+def _flash_timed(q, k, v, do, plain: bool = True) -> tuple:
     """The three flash kernels' device times on causal bf16 [b, L, h, d]
-    inputs beside the plain version, the bound and the library call
+    inputs beside the plain version (unless `plain` is False: its f32
+    scores take 4 b h L^2 bytes), the bound and the library call
     (scaled_dot_product_attention; its backward as forward-and-backward
     minus forward). Returns (records, (o, lse, delta))."""
     import torch
@@ -866,7 +882,7 @@ def _flash_timed(q, k, v, do) -> tuple:
     pairs = causal_pairs(L, L)
     timed = {}
 
-    def rec(name, kernel, plain, products, n_in, n_out, n_stats):
+    def rec(name, kernel, plain_fn, products, n_in, n_out, n_stats):
         """products: score-sized matrix products; n_in/n_out: [b, L, h, d]
         tensors read/written; n_stats: f32 [b, h, L] rows read or
         written."""
@@ -877,7 +893,8 @@ def _flash_timed(q, k, v, do) -> tuple:
         timed[name] = {
             "shape": [b, L, h, hd], "dtype": "bfloat16", "causal": True,
             "ms": graph_ms(kernel, calls=10, reps=3),
-            "plain_ms": graph_ms(plain, calls=2, reps=3),
+            "plain_ms": graph_ms(plain_fn, calls=2, reps=3) if plain
+            else None,
             "bytes": nb, "flops": flops, "causal_pairs": pairs,
             "bound_ms": max(t_ops, t_bytes_ms),
             "bound_by": "operations" if t_ops > t_bytes_ms else "bytes",
@@ -1056,11 +1073,20 @@ def phase_train_kernels():
             return torch.randn((b, n, h, d), generator=gen,
                                device=dev).to(dtype)
         q, k, v, do = rand(lq), rand(lk), rand(lk), rand(lq)
+        before = flash_launches_by_design()
         o, lse = flash_fwd_cuda(q, k, v, causal, scale)
         delta = _delta(o, do)
         dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
         dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
         torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        design = {p_: FLASH_DESIGN[p_][name][d] for p_ in FLASH_DESIGN}
+        after = flash_launches_by_design()
+        served = {k_: after[k_] - before[k_] for k_ in after
+                  if after[k_] != before[k_]}
+        check(served == {(p_, design[p_]): 1.0 for p_ in design},
+              f"flash launches by design at {name} d={d}: {served}, "
+              f"expected {design}")
         f = [t.float() for t in (q, k, v, do)]
         o_ref, lse_ref = _flash_fwd_plain(f[0], f[1], f[2], causal, scale)
         dq_ref = _flash_bwd_dq_plain(f[0], f[1], f[2], f[3], lse, delta,
@@ -1180,15 +1206,23 @@ def phase_train_kernels():
         timed[name]["error_vs_f32_plain"] = {
             x: {"kernel": error(kern_got[x], want[x]),
                 "sdpa": error(sdpa_got[x], want[x])} for x in outs}
+    del q, k, v, do, o, lse, delta, qt, kt, vt, dot, qg, kg, vg
+    del want, out, sdpa_got, kern_got
+    torch.cuda.empty_cache()
+    # The latent-attention training cell's flash shape beside the moe_train
+    # shape's [4, 1024, 32, 128] (phase_moe_train): [4, 8192, 32, 128]
+    # causal, without the plain version (its f32 scores take 34 GB).
+    q, k, v, do = (torch.randn((4, 8192, 32, 128), generator=gen,
+                               device=dev).to(bf) for _ in range(4))
+    timed["flash_at_8192"] = _flash_timed(q, k, v, do, plain=False)[0]
+    del q, k, v, do
+    torch.cuda.empty_cache()
     timed["rmsnorm_fwd"] = rmsnorm_fwd_timed(TRAIN_FWD_SHAPES)
     emit({"phase": "train_kernels_timed", "flash_sdp_enabled":
           torch.backends.cuda.flash_sdp_enabled(), "timed": timed})
     bad = [r for r in timed["rmsnorm_fwd"] if not r["ok"]]
     check(not bad, f"rmsnorm_fwd disagrees with its plain version at the "
           f"training shapes: {bad}")
-    del q, k, v, do, o, lse, delta, qt, kt, vt, dot, qg, kg, vg
-    del want, out, sdpa_got, kern_got
-    torch.cuda.empty_cache()
     return err, timed
 
 

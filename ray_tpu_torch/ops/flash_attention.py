@@ -4,10 +4,16 @@ dk/dv, their plain PyTorch versions, and the autograd wiring.
 Counterpart of ray_tpu/ops/flash_attention.py. In `csrc/flash_attention.cu`,
 `rt_flash_fwd` replaces the Pallas TPU kernel `_flash_fwd_kernel`,
 `rt_flash_bwd_dq` replaces `_flash_bwd_dq_kernel` and `rt_flash_bwd_dkv`
-replaces `_flash_bwd_dkv_kernel`. The C entry points pick their kernel by
-dtype: bf16 forward, dq and dk/dv multiply on the tensor cores
-(`mma.sync`, p and ds rounded to bf16 before their products, as
-FlashAttention-2 does); f32 inputs run on the CUDA cores in f32.
+replaces `_flash_bwd_dkv_kernel`. Every pass is bound by its products at
+the training shapes, so the C entry points pick the way to the tensor
+cores by what the input shows: bf16 at head_dim 64 and 128 runs
+FlashAttention-3's design for Hopper (warpgroup MMA, `wgmma`, fed by TMA
+through an mbarrier ring by a producer warp, one or two consumer
+warpgroups a block); bf16 at 256 runs `mma.sync` kernels (FlashAttention-2's shape);
+f32 runs on the CUDA cores in f32. p and ds are rounded to bf16 before
+their products in both bf16 designs. `rt_flash_design` reads the choice
+back, and each launch counts in `flash_kernel_launches_total{pass,
+design}` beside the wrappers' `launches` integers.
 `_flash_fwd_plain` and `_flash_bwd_plain` compute what those kernels
 compute (same masking, same lse), over whole score matrices;
 `flash_attention_plain` is `_flash_attention_xla`.
@@ -154,11 +160,12 @@ def _kernel(name: str, n_ptrs: int):
 
 
 def _rows16(t: torch.Tensor) -> torch.Tensor:
-    """t with a unit stride in d and every row 16-byte aligned, as the
-    kernels' 16-byte loads need; a copy only where t is not already so."""
+    """t with a unit stride in d and every other stride positive and a
+    multiple of 16 bytes, as the kernels' 16-byte loads and the TMA's
+    tensor maps need; a copy only where t is not already so."""
     item = t.element_size()
     aligned = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-               and all(s * item % 16 == 0 for s in t.stride()[:-1]))
+               and all(s > 0 and s * item % 16 == 0 for s in t.stride()[:-1]))
     if aligned:
         return t
     c = t.contiguous()
@@ -207,15 +214,50 @@ def _strides(*ts):
     return (ctypes.c_int64 * len(vals))(*vals)
 
 
+# The passes (C entry point `rt_<pass>`) as `rt_flash_design` and
+# `rt_flash_smem_bytes` number them, and the designs `rt_flash_design` names.
+_PASS = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
+DESIGNS = ("cuda_cores", "mma_sync", "wgmma")
+
+
+@functools.lru_cache(maxsize=None)
+def _design(pass_: str, dtype_code: int, d: int) -> str:
+    """The design the C entry point of `pass_` launches for a dtype and d:
+    `rt_flash_design`, the dispatch's own table."""
+    fn = _build.load("flash_attention").rt_flash_design
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return DESIGNS[fn(_PASS[pass_], dtype_code, d)]
+
+
+@functools.lru_cache(maxsize=None)
+def launch_counter(pass_: str, design: str):
+    """`flash_kernel_launches_total` and its series key for one pass and
+    design, made at the first launch so that importing the module starts no
+    metrics flusher."""
+    from ray_tpu_torch.util.metrics import Counter, get_or_create
+
+    counter = get_or_create(
+        Counter, "flash_kernel_launches_total",
+        "Launches of the flash attention kernels, by pass (flash_fwd, "
+        "flash_bwd_dq, flash_bwd_dkv) and the design that served it "
+        "(wgmma, mma_sync, cuda_cores)", tag_keys=("pass", "design"))
+    return counter, counter._key({"pass": pass_, "design": design})
+
+
 def _launch(name: str, ptrs, q, k, strides, causal: bool, scale) -> None:
     b, lq, h, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = _DTYPE_CODE[q.dtype]
     err = _kernel(name, len(ptrs))(*ptrs, b, h, lq, k.shape[1], d,
                                    ctypes.cast(strides, ctypes.c_void_p),
                                    float(_scale(q, scale)), int(causal),
-                                   _DTYPE_CODE[q.dtype], stream)
+                                   code, stream)
     if err != 0:
         raise RuntimeError(f"{name} CUDA kernel launch failed: cudaError {err}")
+    pass_ = name.removeprefix("rt_")
+    counter, key = launch_counter(pass_, _design(pass_, code, d))
+    counter.inc_keyed(key)
 
 
 def flash_fwd_cuda(q, k, v, causal: bool = True, scale=None):
@@ -280,7 +322,8 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True,
 flash_bwd_dkv_cuda.launches = 0
 
 
-_PASS = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
+_ROUTE = {"_wgmma": "tensor cores, wgmma", "_mma": "tensor cores",
+          "": "CUDA cores"}
 
 
 def kernel_report() -> list:
@@ -293,14 +336,15 @@ def kernel_report() -> list:
     smem.restype = ctypes.c_longlong
     out = []
     for rec in _build.ptxas_report("flash_attention"):
-        pass_, mma, tail = re.search(
-            r"(flash_(?:fwd|bwd_dq|bwd_dkv))(_mma)?_kernelI(.*)",
+        pass_, route, tail = re.search(
+            r"(flash_(?:fwd|bwd_dq|bwd_dkv))(_wgmma|_mma)?_kernelI(.*)",
             rec["kernel"]).groups()
-        bf16 = bool(mma) or tail.startswith("13__nv_bfloat16")
+        route = route or ""
+        bf16 = bool(route) or tail.startswith("13__nv_bfloat16")
         args = [int(a) for a in re.findall(r"Li(\d+)E", tail)]
         out.append({
-            "kernel": f"{pass_}{mma or ''}_kernel<{str(args)[1:-1]}>",
-            "pass": pass_, "route": "tensor cores" if mma else "CUDA cores",
+            "kernel": f"{pass_}{route}_kernel<{str(args)[1:-1]}>",
+            "pass": pass_, "route": _ROUTE[route],
             "dtype": "bfloat16" if bf16 else "float32", "d": args[0],
             "registers": rec.get("registers"),
             "spill_stores": rec.get("spill_stores"),

@@ -7,15 +7,25 @@ per warp; `ldmatrix`, `mma.sync` and `__shfl_xor_sync` exchange their
 operands between the 32 lanes of a warp and rebuild each fragment from
 the layouts the PTX manual gives; a `cp.async` copy lands only when a
 `cp.async.wait_group` retires its group, so a read before the wait sees
-the stale tile. Shared memory starts as NaN bytes. The kernels, called
-through their C entry points on CPU tensors, are held to the plain
-versions with the tolerances of tests/test_torch_gpu.py.
+the stale tile. Hopper's: `wgmma.mma_async` reads its shared-memory
+operands through the matrix descriptor with the 128-byte swizzle
+(K-major or MN-major) and writes the accumulator fragment the PTX manual
+gives, when a `wgmma.wait_group` retires its group (a register A operand
+is taken at issue); mbarriers complete a phase on their arrivals and
+transaction bytes, and a wait that never completes fails; a TMA tile load
+copies its box from a host-side stand-in for the tensor map (checked as
+`cuTensorMapEncodeTiled` checks it), swizzled, zeros past the tensor,
+and completes its bytes on its barrier; named barriers (`bar.sync`,
+`bar.arrive`) are barriers of their thread count; `setmaxnreg` does
+nothing. Shared memory starts as NaN bytes. The kernels, called through
+their C entry points on CPU tensors, are held to the plain versions with
+the tolerances of tests/test_torch_gpu.py.
 
 This checks what the card-free tests cannot: fragment layouts, the
-shared-memory swizzle, masks, strides and the copy pipeline of the
-kernels as written. It cannot check the inline PTX's syntax, timing or
-memory ordering on the card; the card-only tests and chip_smoke.py do.
-Skips where no C++20 compiler is installed.
+shared-memory swizzle, masks, strides, the copy pipeline and the
+mbarrier ring of the kernels as written. It cannot check the inline
+PTX's syntax, timing or memory ordering on the card; the card-only tests
+and chip_smoke.py do. Skips where no C++20 compiler is installed.
 """
 
 import ctypes
@@ -28,7 +38,8 @@ import torch
 
 from ray_tpu_torch import _build
 from ray_tpu_torch.ops.flash_attention import (_ARG_INT, _ARG_TAIL,
-                                               _DTYPE_CODE, _delta,
+                                               _DTYPE_CODE, _PASS, DESIGNS,
+                                               _delta,
                                                _flash_bwd_dkv_plain,
                                                _flash_bwd_dq_plain,
                                                _flash_fwd_plain, _strides)
@@ -41,7 +52,9 @@ _EMU_H = r"""
 #pragma once
 #include <algorithm>
 #include <barrier>
+#include <chrono>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -57,6 +70,8 @@ _EMU_H = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
+#define __grid_constant__
+#define CUDART_VERSION 12080
 
 using std::min;
 
@@ -126,12 +141,16 @@ struct Warp {
   uint32_t addr[32], a[32][4], b[32][2];
   float f[32];
 };
+struct Mbar { int count, pending; long tx; unsigned phase; };
 struct Block {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<unsigned char> smem;
   std::vector<std::unique_ptr<Warp>> warps;
-  std::mutex mu;  // guards statics
+  std::mutex mu;  // guards statics, named barriers and mbarriers
+  std::condition_variable cv;  // an mbarrier phase completed
   std::map<std::pair<int, size_t>, std::vector<unsigned char>> statics;
+  std::map<int, std::unique_ptr<std::barrier<>>> named;
+  std::map<uint32_t, Mbar> mbars;
 };
 thread_local Block* emu_block = nullptr;
 thread_local int emu_lane = 0, emu_warp = 0;
@@ -249,6 +268,239 @@ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
   }
 }
 
+
+// Hopper: mbarriers, TMA tile loads, named barriers, wgmma.
+// An mbarrier's phase completes when its pending arrivals and its expected
+// transaction bytes both reach 0; a wait for parity p returns once the
+// phase count's parity differs from p. A wait that lasts a minute is a
+// deadlock.
+inline Mbar& emu_mbar(uint32_t bar) {
+  auto it = emu_block->mbars.find(bar);
+  if (it == emu_block->mbars.end()) emu_fail("mbarrier used before mbarrier.init");
+  return it->second;
+}
+inline void emu_mbar_step(Mbar& m) {
+  if (m.pending < 0) emu_fail("more arrivals on an mbarrier than its count");
+  if (m.pending == 0 && m.tx == 0) {
+    ++m.phase;
+    m.pending = m.count;
+    emu_block->cv.notify_all();
+  }
+}
+inline void mbar_init(uint32_t bar, int count) {
+  emu_check(bar, 8);
+  std::lock_guard<std::mutex> lock(emu_block->mu);
+  emu_block->mbars[bar] = {count, count, 0, 0};
+}
+inline void mbar_fence_init() {}
+inline void mbar_arrive(uint32_t bar) {
+  std::lock_guard<std::mutex> lock(emu_block->mu);
+  Mbar& m = emu_mbar(bar);
+  --m.pending;
+  emu_mbar_step(m);
+}
+inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> lock(emu_block->mu);
+  Mbar& m = emu_mbar(bar);
+  m.tx += bytes;
+  --m.pending;
+  emu_mbar_step(m);
+}
+inline void emu_complete_tx(uint32_t bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> lock(emu_block->mu);
+  Mbar& m = emu_mbar(bar);
+  m.tx -= bytes;
+  emu_mbar_step(m);
+}
+inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  std::unique_lock<std::mutex> lock(emu_block->mu);
+  Mbar& m = emu_mbar(bar);
+  if (!emu_block->cv.wait_for(lock, std::chrono::seconds(60),
+                              [&] { return (m.phase & 1) != parity; }))
+    emu_fail("mbarrier wait never completed (deadlock)");
+}
+inline void named_bar_sync(int id, int threads) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lock(emu_block->mu);
+    auto& p = emu_block->named[id];
+    if (!p) p = std::make_unique<std::barrier<>>(threads);
+    b = p.get();
+  }
+  b->arrive_and_wait();
+}
+inline void named_bar_arrive(int id, int threads) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lock(emu_block->mu);
+    auto& p = emu_block->named[id];
+    if (!p) p = std::make_unique<std::barrier<>>(threads);
+    b = p.get();
+  }
+  (void)b->arrive();
+}
+template <int N>
+inline void setmaxnreg_inc() {}
+template <int N>
+inline void setmaxnreg_dec() {}
+
+// The 128-byte swizzle on shared-memory addresses: bits 4-6 (the 16-byte
+// chunk of a 128-byte row) XOR bits 7-9 (the row in a 1024-byte period).
+inline uint32_t emu_swz128(uint32_t a) { return a ^ (((a >> 7) & 7) << 4); }
+
+// A host-side tensor map: what cuTensorMapEncodeTiled was given, checked as
+// the driver checks it.
+typedef int CUresult;
+enum { CUDA_SUCCESS = 0, CUDA_ERROR_INVALID_VALUE = 1 };
+typedef uint32_t cuuint32_t;
+typedef uint64_t cuuint64_t;
+struct alignas(64) CUtensorMap { uint64_t opaque[16]; };
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 };
+enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 };
+enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_NONE = 0, CU_TENSOR_MAP_SWIZZLE_128B = 3 };
+enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_L2_256B = 3 };
+enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0 };
+enum { cudaEnableDefault = 0 };
+struct EmuMap {
+  const unsigned char* base;
+  uint64_t dims[4], strides[4];
+  uint32_t box[4];
+};
+static_assert(sizeof(EmuMap) <= sizeof(CUtensorMap), "tensor map stand-in too large");
+inline CUresult emu_encode_tiled(CUtensorMap* map, CUtensorMapDataType dt, cuuint32_t rank,
+                                 void* addr, const cuuint64_t* dims, const cuuint64_t* strides,
+                                 const cuuint32_t* box, const cuuint32_t* es,
+                                 CUtensorMapInterleave il, CUtensorMapSwizzle sw,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill oob) {
+  if (dt != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 || rank != 4 || il != CU_TENSOR_MAP_INTERLEAVE_NONE ||
+      sw != CU_TENSOR_MAP_SWIZZLE_128B || oob != CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE ||
+      reinterpret_cast<uintptr_t>(addr) % 16 || box[0] * 2 > 128)
+    return CUDA_ERROR_INVALID_VALUE;
+  EmuMap m{static_cast<const unsigned char*>(addr), {}, {2}, {}};
+  for (int i = 0; i < 4; ++i) {
+    if (dims[i] == 0 || box[i] == 0 || box[i] > 256 || es[i] != 1) return CUDA_ERROR_INVALID_VALUE;
+    m.dims[i] = dims[i];
+    m.box[i] = box[i];
+    if (i > 0) {
+      if (strides[i - 1] % 16 || strides[i - 1] >= (1ull << 40)) return CUDA_ERROR_INVALID_VALUE;
+      m.strides[i] = strides[i - 1];
+    }
+  }
+  std::memcpy(map, &m, sizeof(m));
+  return CUDA_SUCCESS;
+}
+inline cudaError_t cudaGetDriverEntryPointByVersion(const char* name, void** fn, unsigned,
+                                                    unsigned long long,
+                                                    cudaDriverEntryPointQueryResult* found) {
+  if (std::strcmp(name, "cuTensorMapEncodeTiled")) emu_fail("unknown driver entry point");
+  *fn = reinterpret_cast<void*>(&emu_encode_tiled);
+  *found = cudaDriverEntryPointSuccess;
+  return cudaSuccess;
+}
+// cp.async.bulk.tensor: the box lands at once, swizzled, zeros where it
+// leaves the tensor, and its bytes complete on the barrier.
+inline void tma_load_4d(uint32_t dst, const void* map, uint32_t bar, int c0, int c1, int c2,
+                        int c3) {
+  EmuMap m;
+  std::memcpy(&m, map, sizeof(m));
+  if (dst % 1024) emu_fail("a 128-byte-swizzled TMA destination must be 1024-byte aligned");
+  const int c[4] = {c0, c1, c2, c3};
+  uint32_t n = 0;
+  for (uint32_t i3 = 0; i3 < m.box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < m.box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < m.box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < m.box[0]; ++i0, ++n) {
+          const int64_t at[4] = {c[0] + i0, c[1] + i1, c[2] + i2, c[3] + i3};
+          uint16_t v = 0;
+          bool in = true;
+          int64_t off = 0;
+          for (int d = 0; d < 4; ++d) {
+            in = in && at[d] >= 0 && at[d] < static_cast<int64_t>(m.dims[d]);
+            off += at[d] * static_cast<int64_t>(m.strides[d]);
+          }
+          if (in) std::memcpy(&v, m.base + off, 2);
+          const uint32_t to = emu_swz128(dst + 2 * n);
+          emu_check(to, 2);
+          std::memcpy(emu_smem() + to, &v, 2);
+        }
+  emu_complete_tx(bar, 2 * n);
+}
+
+// wgmma.mma_async: issued products wait in the thread's open group until a
+// commit, and run (reading shared memory then) when a wait retires their
+// group. A register A operand is exchanged within the warp at issue.
+struct WgOp {
+  float* d;
+  int regs;
+  bool a_smem;
+  uint64_t da, db;
+  float a[16][16];  // the warp's 16 rows of a register A operand
+  int scale_d;
+  bool b_mn;
+};
+thread_local std::vector<std::vector<WgOp>> emu_wg_groups;
+thread_local std::vector<WgOp> emu_wg_open;
+inline float emu_desc_elem(uint64_t desc, bool mn, int i, int k) {
+  if ((desc >> 62) != 1) emu_fail("wgmma descriptor without the 128-byte swizzle");
+  const uint32_t start = static_cast<uint32_t>(desc & 0x3FFF) << 4;
+  const uint32_t lbo = static_cast<uint32_t>((desc >> 16) & 0x3FFF) << 4;
+  const uint32_t sbo = static_cast<uint32_t>((desc >> 32) & 0x3FFF) << 4;
+  // K-major: row i (m or n), k in the 128-byte row; MN-major: column i in
+  // 64-wide blocks lbo apart, k along the rows.
+  const uint32_t lin = mn ? start + (i >> 6) * lbo + (k >> 3) * sbo + (k & 7) * 128 + 2 * (i & 63)
+                          : start + (i >> 3) * sbo + (i & 7) * 128 + 2 * k;
+  return __bfloat162float({emu_half(emu_swz128(lin))});
+}
+inline void emu_wg_run(const WgOp& op) {
+  const int w = emu_warp % 4, g = emu_lane / 4, t = emu_lane % 4;
+  for (int i = 0; i < op.regs; ++i) {
+    const int r = g + 8 * ((i % 4) / 2), col = 8 * (i / 4) + 2 * t + i % 2;
+    double sum = op.scale_d ? op.d[i] : 0.0;
+    for (int k = 0; k < 16; ++k) {
+      const float a = op.a_smem ? emu_desc_elem(op.da, false, 16 * w + r, k) : op.a[r][k];
+      sum += static_cast<double>(a) * emu_desc_elem(op.db, op.b_mn, col, k);
+    }
+    op.d[i] = static_cast<float>(sum);
+  }
+}
+template <int M>
+inline void wgmma_ss(float (&d)[M], uint64_t a, uint64_t b, int scale_d) {
+  WgOp op{d, M, true, a, b, {}, scale_d, false};
+  emu_wg_open.push_back(op);
+}
+template <int M>
+inline void wgmma_rs(float (&d)[M], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  Warp& w = emu_w();
+  for (int i = 0; i < 4; ++i) w.a[emu_lane][i] = a[i];
+  w.bar.arrive_and_wait();
+  WgOp op{d, M, false, 0, b, {}, scale_d, true};
+  for (int l = 0; l < 32; ++l)
+    for (int j = 0; j < 2; ++j) {
+      const int g = l / 4, t = l % 4;
+      op.a[g][2 * t + j] = emu_bf(w.a[l][0], j);
+      op.a[g + 8][2 * t + j] = emu_bf(w.a[l][1], j);
+      op.a[g][2 * t + 8 + j] = emu_bf(w.a[l][2], j);
+      op.a[g + 8][2 * t + 8 + j] = emu_bf(w.a[l][3], j);
+    }
+  w.bar.arrive_and_wait();
+  emu_wg_open.push_back(op);
+}
+inline void wgmma_fence() {}
+inline void wgmma_commit() {
+  emu_wg_groups.push_back(emu_wg_open);
+  emu_wg_open.clear();
+}
+template <int N>
+inline void wgmma_wait() {
+  while (static_cast<int>(emu_wg_groups.size()) > N) {
+    for (const WgOp& op : emu_wg_groups.front()) emu_wg_run(op);
+    emu_wg_groups.erase(emu_wg_groups.begin());
+  }
+}
+template <int M>
+inline void fence_acc(float (&)[M]) {}
+
 template <typename Kernel, typename... Args>
 void emu_launch(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, Args... args) {
   const int nt = block.x * block.y * block.z;
@@ -271,9 +523,13 @@ void emu_launch(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t,
           emu_warp = t / 32;
           emu_groups.clear();
           emu_open.clear();
+          emu_wg_groups.clear();
+          emu_wg_open.clear();
           kernel(args...);
           for (auto& g : emu_groups)
             if (!g.empty()) emu_fail("a cp.async group was still in flight at exit");
+          if (!emu_wg_groups.empty() || !emu_wg_open.empty())
+            emu_fail("a wgmma group was still in flight at exit");
         });
       for (auto& th : threads) th.join();
     }
@@ -282,12 +538,17 @@ void emu_launch(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t,
 
 # The device helpers written in inline PTX, replaced by the emulation's.
 _PTX_HELPERS = ("smem_u32", "cp_async16", "cp_async4", "cp_async_commit",
-                "cp_async_wait", "ldsm_x4", "ldsm_x4_trans", "mma_bf16")
+                "cp_async_wait", "ldsm_x4", "ldsm_x4_trans", "mma_bf16",
+                "mbar_init", "mbar_fence_init", "mbar_arrive", "mbar_expect_tx",
+                "mbar_wait", "tma_load_4d", "named_bar_sync", "named_bar_arrive",
+                "setmaxnreg_inc", "setmaxnreg_dec", "wgmma_fence",
+                "wgmma_commit", "wgmma_wait", "fence_acc", "wgmma_ss",
+                "wgmma_rs")
 
 
 def _emulation_source(cu: str) -> str:
-    src = cu.replace("#include <cuda_bf16.h>\n#include <cuda_runtime.h>\n",
-                     '#include "emu.h"\n')
+    src = re.sub(r"(#include <cuda\w*\.h>\n)+", '#include "emu.h"\n', cu,
+                 count=1)
     # Dynamic shared memory is the emulated block's buffer; a static
     # __shared__ variable is one per emulated block.
     src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+) (\w+)\[\];",
@@ -316,7 +577,8 @@ _ENTRY_POINTS = {
     "flash_attention": {
         name: [_VP] * n_ptrs + _ARG_INT + _ARG_TAIL
         for name, n_ptrs in (("rt_flash_fwd", 5), ("rt_flash_bwd_dq", 7),
-                             ("rt_flash_bwd_dkv", 8))},
+                             ("rt_flash_bwd_dkv", 8))} | {
+        "rt_flash_design": [ctypes.c_int] * 3},
     "rmsnorm": {
         "rt_rmsnorm_fwd": [_VP] * 3 + [_I64] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, _VP],
@@ -361,11 +623,12 @@ def emulated(tmp_path_factory):
     return fns
 
 
-def _run(fns, name, tensors, q, k, causal):
+def _run(fns, name, tensors, q, k, causal, scale=None):
     b, lq, h, d = q.shape
     strides = _strides(*(t for t in tensors if t.dim() == 4))
+    scale = d ** -0.5 if scale is None else scale
     err = fns[name](*(t.data_ptr() for t in tensors), b, h, lq, k.shape[1],
-                    d, ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5),
+                    d, ctypes.cast(strides, ctypes.c_void_p), float(scale),
                     int(causal), _DTYPE_CODE[q.dtype], None)
     assert err == 0, f"{name} returned {err}"
 
@@ -392,45 +655,70 @@ def _bf16_ulp_diff(a, b) -> int:
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-# (causal, lq, lk, d, heads, dtype): every bf16 tensor-core instantiation
-# (d = 64, 128 and 256: dk/dv's two warps per row block), causal Lq != Lk
-# both ways and ragged tails; one f32 case runs the CUDA-core kernels.
-@pytest.mark.parametrize("causal,lq,lk,d,h,dtype", [
-    (True, 70, 129, 64, 2, "bfloat16"),
-    (False, 129, 70, 128, 1, "bfloat16"),
-    (True, 100, 40, 128, 1, "bfloat16"),
-    (True, 129, 129, 256, 1, "bfloat16"),
-    (False, 40, 70, 64, 1, "float32"),
+# Latent attention's softmax scale at d = 128 (2.2058 x 128^-0.5).
+_MLA_SCALE = 2.2058 * 128 ** -0.5
+
+
+# (causal, lq, lk, d, heads, dtype, scale, v_width): bf16 at d = 64 and
+# 128 runs the warpgroup kernels (wgmma, TMA, mbarriers), at d = 256 the
+# mma.sync kernels (dk/dv's two warps per row block); causal Lq != Lk both
+# ways and ragged tails; rings that wrap (more kv or q tiles than stages);
+# latent attention's scale with v a view of the first 128 of 256 columns a
+# head; one f32 case runs the CUDA-core kernels.
+@pytest.mark.parametrize("causal,lq,lk,d,h,dtype,scale,v_width", [
+    (True, 70, 129, 64, 2, "bfloat16", None, 64),
+    (False, 129, 70, 128, 1, "bfloat16", None, 128),
+    (True, 100, 40, 128, 1, "bfloat16", None, 128),
+    (True, 129, 129, 256, 1, "bfloat16", None, 256),
+    (False, 40, 70, 64, 1, "float32", None, 64),
+    (True, 300, 200, 128, 1, "bfloat16", _MLA_SCALE, 256),
+    (False, 64, 300, 64, 1, "bfloat16", None, 64),
 ])
 def test_flash_kernels_emulated_match_plain(emulated, causal, lq, lk, d, h,
-                                            dtype):
+                                            dtype, scale, v_width):
     tdt = getattr(torch, dtype)
     gen = torch.Generator().manual_seed(lq * 7 + lk + d)
 
-    def rand(n, heads=h):
-        return torch.randn((1, n, heads, d), generator=gen).to(tdt)
+    def rand(n, heads=h, width=d):
+        return torch.randn((1, n, heads, width), generator=gen).to(tdt)
 
     q = rand(lq, 2 * h)[:, :, ::2]  # strided heads, read through strides
-    k, v, do = rand(lk), rand(lk), rand(lq)
+    k, do = rand(lk), rand(lq)
+    v = rand(lk, width=v_width)[..., :d]  # a head stride of v_width
     o = torch.empty((1, lq, h, d), dtype=tdt)
     lse = torch.empty((1, h, lq))
-    _run(emulated, "rt_flash_fwd", (q, k, v, o, lse), q, k, causal)
+    _run(emulated, "rt_flash_fwd", (q, k, v, o, lse), q, k, causal, scale)
     f = [t.float() for t in (q, k, v, do)]
-    o_ref, lse_ref = _flash_fwd_plain(f[0], f[1], f[2], causal)
+    o_ref, lse_ref = _flash_fwd_plain(f[0], f[1], f[2], causal, scale)
     _assert_close(o, o_ref, tdt, 2e-4)
     torch.testing.assert_close(lse, lse_ref, rtol=2e-4, atol=2e-4)
 
     delta = _delta(o, do)
     dq = torch.empty_like(o)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(k)
     _run(emulated, "rt_flash_bwd_dq", (q, k, v, do, lse, delta, dq), q, k,
-         causal)
+         causal, scale)
     _run(emulated, "rt_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q,
-         k, causal)
-    _assert_close(dq, _flash_bwd_dq_plain(*f, lse, delta, causal), tdt, 2e-3)
+         k, causal, scale)
+    _assert_close(dq, _flash_bwd_dq_plain(*f, lse, delta, causal, scale), tdt,
+                  2e-3)
     for got, want in zip((dk, dv),
-                         _flash_bwd_dkv_plain(*f, lse, delta, causal)):
+                         _flash_bwd_dkv_plain(*f, lse, delta, causal, scale)):
         _assert_close(got, want, tdt, 2e-3)
+
+
+# (dtype, d, design): the design rt_flash_design names for every pass, the
+# one the entry points launch and the wrapper counts.
+@pytest.mark.parametrize("dtype,d,design", [
+    ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"),
+    ("bfloat16", 256, "mma_sync"), ("float32", 64, "cuda_cores"),
+    ("float32", 128, "cuda_cores"), ("float32", 256, "cuda_cores"),
+])
+def test_flash_design_by_dtype_and_width(emulated, dtype, d, design):
+    code = _DTYPE_CODE[getattr(torch, dtype)]
+    assert [DESIGNS[emulated["rt_flash_design"](p, code, d)]
+            for p in _PASS.values()] == [design] * 3
+    assert emulated["rt_flash_design"](0, code, 96) == -1
 
 
 # (rows, d, row_pad, blocks, dtype): the RMSNorm kernels through

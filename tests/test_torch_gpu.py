@@ -49,11 +49,12 @@ import torch
 from ray_tpu_torch.models import configs, init_params, loss_fn
 from ray_tpu_torch.models.generate import generate
 from ray_tpu_torch.ops import flash_attention, rmsnorm
-from ray_tpu_torch.ops.flash_attention import (_delta, _flash_bwd_plain,
+from ray_tpu_torch.ops.flash_attention import (DESIGNS, _delta,
+                                               _flash_bwd_plain,
                                                _flash_fwd_plain,
                                                flash_bwd_dkv_cuda,
                                                flash_bwd_dq_cuda,
-                                               flash_fwd_cuda)
+                                               flash_fwd_cuda, launch_counter)
 from ray_tpu_torch.ops.rmsnorm import (_rmsnorm_bwd_plain, _rmsnorm_plain,
                                        rmsnorm_bwd_cuda, rmsnorm_cuda)
 from ray_tpu_torch.serve.llm import ContinuousBatchingEngine
@@ -198,13 +199,31 @@ def test_rmsnorm_autograd_runs_both_kernels(cuda_device):
     torch.testing.assert_close(w.grad.cpu(), wc.grad, rtol=1e-4, atol=1e-4)
 
 
+def _launches_by_design():
+    """flash_kernel_launches_total's counts, {(pass, design): n}."""
+    out = {}
+    for p in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        for d in DESIGNS:
+            counter, key = launch_counter(p, d)
+            out[(p, d)] = counter._deltas.get(key, 0.0)
+    return out
+
+
+# The design each (dtype, d) class takes, for every pass.
+_FLASH_DESIGN = {("bfloat16", 64): "wgmma", ("bfloat16", 128): "wgmma",
+                 ("bfloat16", 256): "mma_sync", ("float32", 64): "cuda_cores",
+                 ("float32", 128): "cuda_cores", ("float32", 256): "cuda_cores"}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,lq,lk,d", [
     (True, 1, 1, 128), (True, 7, 7, 64), (True, 129, 129, 128),
     (True, 1024, 1024, 128), (False, 129, 70, 256), (False, 7, 129, 128),
     (True, 129, 129, 256), (True, 70, 129, 64),
-    # The bf16 tensor-core tiling: causal Lq != Lk both ways, ragged tails.
+    # The bf16 tiling (warpgroup kernels at d = 64 and 128, mma.sync at
+    # 256): causal Lq != Lk both ways, ragged tails, rings that wrap.
     (True, 200, 1000, 128), (True, 1000, 200, 256), (False, 1000, 129, 64),
+    (True, 1000, 200, 128), (True, 300, 1000, 64), (False, 129, 1000, 128),
 ])
 def test_flash_kernels_match_plain(cuda_device, causal, lq, lk, d, dtype):
     tdt = getattr(torch, dtype)
@@ -218,6 +237,7 @@ def test_flash_kernels_match_plain(cuda_device, causal, lq, lk, d, dtype):
     q, k, v, do = rand(lq), rand(lk), rand(lk), rand(lq)
     launches = (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
                 flash_bwd_dkv_cuda.launches)
+    by_design = _launches_by_design()
     o, lse = flash_fwd_cuda(q, k, v, causal)
     delta = _delta(o, do)
     dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
@@ -225,6 +245,12 @@ def test_flash_kernels_match_plain(cuda_device, causal, lq, lk, d, dtype):
     torch.cuda.synchronize()
     assert (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
             flash_bwd_dkv_cuda.launches) == tuple(n + 1 for n in launches)
+    # flash_kernel_launches_total: one launch a pass, under this class's
+    # design and no other.
+    design = _FLASH_DESIGN[(dtype, d)]
+    after = _launches_by_design()
+    assert {k_: after[k_] - by_design[k_] for k_ in after} == {
+        (p, d_): float(d_ == design) for p, d_ in after}
     f = [t.float() for t in (q, k, v, do)]
     o_ref, lse_ref = _flash_fwd_plain(f[0], f[1], f[2], causal)
     # The backward's reference takes the kernel's own o and lse, as the
@@ -285,22 +311,34 @@ def test_rmsnorm_bwd_kernel_is_deterministic(cuda_device):
         assert torch.equal(a, b)
 
 
-def test_flash_attention_strided_and_gqa_on_card(cuda_device):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_strided_and_gqa_on_card(cuda_device, dtype):
     """Strided [b, L, h, d] views reach the kernels without a transposing
-    copy; GQA's repeated heads sum their gradients back."""
+    copy; GQA's repeated heads sum their gradients back. bf16 (the
+    warpgroup kernels) against the plain version in f32 on the same bf16
+    inputs, the loss a bf16-exact weighting of o so that both backwards
+    start from the same do; f32 within 2e-3."""
+    tdt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda_device).manual_seed(5)
-    qkv = torch.randn((2, 40, 3 * 8, 64), generator=gen, device=cuda_device)
+    qkv = torch.randn((2, 300, 3 * 8, 64), generator=gen,
+                      device=cuda_device).to(tdt)
     q = qkv[:, :, :8].detach().requires_grad_(True)
-    k = torch.randn((2, 40, 2, 64), generator=gen, device=cuda_device,
-                    requires_grad=True)
-    v = torch.randn((2, 40, 2, 64), generator=gen, device=cuda_device,
-                    requires_grad=True)
-    flash_attention(q, k, v).square().sum().backward()
-    cpu = [t.detach().cpu().requires_grad_(True) for t in (q, k, v)]
-    flash_attention(*cpu).square().sum().backward()
+    k = torch.randn((2, 300, 4, 64), generator=gen,
+                    device=cuda_device).to(tdt).requires_grad_(True)
+    v = torch.randn((2, 300, 4, 64), generator=gen,
+                    device=cuda_device).to(tdt).requires_grad_(True)
+    w = torch.randn((2, 300, 8, 64), generator=gen,
+                    device=cuda_device).to(tdt).float()
+    (flash_attention(q, k, v).float() * w).sum().backward()
+    cpu = [t.detach().float().cpu().requires_grad_(True) for t in (q, k, v)]
+    (flash_attention(*cpu).float() * w.cpu()).sum().backward()
     for t, c in zip((q, k, v), cpu):
-        torch.testing.assert_close(t.grad.cpu(), c.grad, rtol=2e-3,
-                                   atol=2e-3)
+        if dtype == "float32":
+            torch.testing.assert_close(t.grad.cpu(), c.grad, rtol=2e-3,
+                                       atol=2e-3)
+        else:
+            assert t.grad.dtype == tdt
+            _assert_bf16_close(t.grad.cpu(), c.grad)
 
 
 def test_flash_cuda_refuses_unsupported_head_width(cuda_device):
@@ -431,20 +469,23 @@ def test_mla_moe_step_on_card_matches_cpu(cuda_device):
         assert float((g - gc).norm() / gc.norm()) <= 1e-3
 
 
+@pytest.mark.parametrize("v_width", [128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_kernels_take_the_softmax_scale(cuda_device, dtype):
+def test_flash_kernels_take_the_softmax_scale(cuda_device, dtype, v_width):
     """A softmax scale other than head_dim^-0.5 (latent attention's, 2.2058
     times it) reaches the forward, dq and dk/dv kernels: each matches the
-    plain version at that scale within the tolerances above."""
+    plain version at that scale within the tolerances above. v_width 256:
+    v is the first 128 of 256 columns a head, a view with a head stride of
+    256 elements, as `_mla_block` hands it to flash."""
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda_device).manual_seed(17)
     scale = 2.2058 * 128 ** -0.5
 
-    def rand():
-        return torch.randn((2, 300, 4, 128), generator=gen,
+    def rand(width=128):
+        return torch.randn((2, 300, 4, width), generator=gen,
                            device=cuda_device).to(tdt)
 
-    q, k, v, do = rand(), rand(), rand(), rand()
+    q, k, v, do = rand(), rand(), rand(v_width)[..., :128], rand()
     o, lse = flash_fwd_cuda(q, k, v, True, scale)
     delta = _delta(o, do)
     dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, True, scale)

@@ -510,26 +510,41 @@ def test_build_report_reads_ptxas_log(monkeypatch, tmp_path):
                                    "CUDA cores", "float32", 1128, 44)
 
 
-# The tensor-core dq kernel at d = 128 as ptxas names it for sm_90a.
+# The tensor-core dq kernel at d = 128 as ptxas names it for sm_90a, and
+# the warpgroup dk/dv kernel beside it.
 _PTXAS_LOG_DQ = """\
 ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_e1dd8ece23flash_bwd_dq_mma_kernelILi128ELi64ELi1EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_iiiNS_7StridesES7_S7_S7_S7_fi' for 'sm_90a'
 ptxas info    : Function properties for _ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_e1dd8ece23flash_bwd_dq_mma_kernelILi128ELi64ELi1EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_iiiNS_7StridesES7_S7_S7_S7_fi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 248 registers, used 1 barriers, 512 bytes cmem[0]
 """
+_PTXAS_LOG_DKV_WGMMA = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_e1dd8ece26flash_bwd_dkv_wgmma_kernelILi128ELi64ELi2EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiNS_7StridesES6_fi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_e1dd8ece26flash_bwd_dkv_wgmma_kernelILi128ELi64ELi2EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiNS_7StridesES6_fi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 2048 bytes cmem[0]
+"""
 
 
-def test_build_report_names_the_tensor_core_dq_kernel(monkeypatch, tmp_path):
-    """The bf16 dq kernel is reported as dq's pass on the tensor cores, with
-    its template arguments (d, kv rows a stage, warps a 16-row slice) and
-    the shared memory of pass 1 in bf16."""
+@pytest.mark.parametrize("log,want", [
+    (_PTXAS_LOG_DQ, ("flash_bwd_dq_mma_kernel<128, 64, 1>", "flash_bwd_dq",
+                     "tensor cores", "bfloat16", 128, 248, 0, 1228)),
+    (_PTXAS_LOG_DKV_WGMMA, ("flash_bwd_dkv_wgmma_kernel<128, 64, 2>",
+                            "flash_bwd_dkv", "tensor cores, wgmma",
+                            "bfloat16", 128, 168, 0, 2228)),
+])
+def test_build_report_names_the_tensor_core_dq_kernel(monkeypatch, tmp_path,
+                                                      log, want):
+    """A bf16 kernel is reported under its pass and route (mma.sync's
+    "tensor cores" or "tensor cores, wgmma"), with its template arguments
+    (d first) and the shared memory of its pass in bf16."""
     import importlib
 
     from ray_tpu_torch import _build
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
     lib = tmp_path / "libflash_attention-0.so"
-    lib.with_suffix(".log").write_text(_PTXAS_LOG_DQ)
+    lib.with_suffix(".log").write_text(log)
     monkeypatch.setattr(_build, "_target", lambda name: lib)
 
     class Lib:
@@ -538,11 +553,9 @@ def test_build_report_names_the_tensor_core_dq_kernel(monkeypatch, tmp_path):
             return 1000 * pass_ + 100 * dtype + d
 
     monkeypatch.setattr(_build, "load", lambda name: Lib)
-    (dq,) = fa.kernel_report()
-    assert (dq["kernel"], dq["pass"], dq["route"], dq["dtype"], dq["d"],
-            dq["registers"], dq["spill_stores"], dq["dynamic_smem"]) == (
-        "flash_bwd_dq_mma_kernel<128, 64, 1>", "flash_bwd_dq", "tensor cores",
-        "bfloat16", 128, 248, 0, 1228)
+    (rec,) = fa.kernel_report()
+    assert (rec["kernel"], rec["pass"], rec["route"], rec["dtype"], rec["d"],
+            rec["registers"], rec["spill_stores"], rec["dynamic_smem"]) == want
 
 
 _LOADGEN_DASHBOARD_MODULES = [

@@ -46,7 +46,7 @@ from ray_tpu.ops.rope import rope_frequencies as jax_rope_frequencies
 from ray_tpu_torch.ops import (apply_rope, flash_attention, rmsnorm,
                                rope_frequencies, softmax_cross_entropy)
 from ray_tpu_torch.ops.cross_entropy import chunked_lm_head_ce
-from ray_tpu_torch.ops.flash_attention import (_delta,
+from ray_tpu_torch.ops.flash_attention import (DESIGNS, _delta,
                                                _flash_bwd_dkv_plain,
                                                _flash_bwd_dq_plain,
                                                _flash_bwd_plain,
@@ -55,7 +55,7 @@ from ray_tpu_torch.ops.flash_attention import (_delta,
                                                flash_attention_plain,
                                                flash_bwd_dkv_cuda,
                                                flash_bwd_dq_cuda,
-                                               flash_fwd_cuda)
+                                               flash_fwd_cuda, launch_counter)
 from ray_tpu_torch.ops.rmsnorm import (_rmsnorm_bwd_plain, _rmsnorm_plain,
                                        rmsnorm_bwd_cuda, rmsnorm_cuda)
 
@@ -321,12 +321,12 @@ def _bf16(t):
 def _tensor_core_fwd(q, k, v, causal):
     """The bf16 tensor-core forward's arithmetic, on the CPU: f32 scores of
     bf16 inputs, scaled by sm_scale * log2(e) and exponentiated with exp2
-    against a running max over kv tiles (64 keys, 32 at d = 256); p
+    against a running max over kv tiles (128 keys, 32 at d = 256); p
     rounded to bf16 before p v, its row sum l taken in f32; o rounded once.
     Returns (o in bf16, lse f32 [b, h, lq])."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
-    bk = 32 if d == 256 else 64
+    bk = 32 if d == 256 else 128
     valid = _valid(lq, lk, causal, "cpu")
     qf, kf, vf = q.float(), k.float(), v.float()
     m = torch.full((b, h, lq, 1), -1e30)
@@ -430,6 +430,19 @@ def test_flash_cuda_wrappers_refuse_unsupported_head_width(fn, args):
     extra["do"] = q
     with pytest.raises(ValueError, match="CUDA device"):
         fn(q, q, q, *(extra[a] for a in args))
+
+
+@pytest.mark.parametrize("pass_", ["flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"])
+def test_flash_launch_counter_names_its_series(pass_):
+    """flash_kernel_launches_total has one series a (pass, design): the
+    pass's wrapper counts each launch under the design that served it."""
+    for design in DESIGNS:
+        counter, key = launch_counter(pass_, design)
+        assert (counter.info["name"], counter.info["tag_keys"]) == (
+            "flash_kernel_launches_total", ("pass", "design"))
+        assert key == (("design", design), ("pass", pass_))
+    assert DESIGNS == ("cuda_cores", "mma_sync", "wgmma")
 
 
 def test_rmsnorm_bwd_cuda_refuses_cpu_and_wide_rows():
