@@ -12,6 +12,9 @@ stacked leaves (so gradients land on the stacked tensors), its
 `jax.checkpoint` policies become `torch.utils.checkpoint` with the same
 three policies, and every RMSNorm and attention runs the hand-written
 CUDA kernels on a CUDA tensor. MoE layers run parallel/moe.py.
+`_layer_body` is the port's one decoder layer: generation and the serving
+engine run it too (models/generate.py's cached forward), passing an
+attention that writes and reads their KV cache.
 
 Under a mesh (parallel.build_mesh) each rank passes its local shards
 (parallel.shard_params with param_logical_axes) and its block of the
@@ -492,13 +495,17 @@ def _moe_mlp(cfg: TransformerConfig, h, lp, mesh, seq_sharded: bool):
     return out, aux
 
 
-def _layer_body(cfg: TransformerConfig, x, lp, cos, sin, positions,
+def _layer_body(cfg: TransformerConfig, x, lp, cos, sin, positions, attend,
                 mesh=None, seq_sharded: bool = False):
-    """One decoder layer, with the reference's casts. Returns (x, aux)."""
+    """One decoder layer, with the reference's casts: training's, and the
+    cached paths' (models/generate.py), which differ only in `attend`.
+    Returns (x, aux): aux is the MoE's auxiliary loss, None for a dense
+    layer."""
     with device_span("model.attention") as sp:
         x = sp.entry(x)
         x = sp.exit(x + _attention_block(cfg, x, lp, cos, sin, positions,
-                                         mesh, seq_sharded).to(x.dtype))
+                                         attend, mesh, seq_sharded)
+                    .to(x.dtype))
     with device_span("model.mlp") as sp:
         x = sp.entry(x)
         h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
@@ -507,14 +514,17 @@ def _layer_body(cfg: TransformerConfig, x, lp, cos, sin, positions,
             return sp.exit(x + mlp_out.to(x.dtype), aux)
         mlp_out = _swiglu(cfg, h, lp["w_gate"], lp["w_up"], lp["w_down"],
                           mesh)
-        return (sp.exit(x + mlp_out),
-                torch.zeros((), dtype=torch.float32, device=x.device))
+        return sp.exit(x + mlp_out), None
 
 
 def _attention_block(cfg: TransformerConfig, x, lp, cos, sin, positions,
-                     mesh, seq_sharded: bool):
+                     attend, mesh, seq_sharded: bool):
     """attn norm -> q/k/v -> rope -> attention -> out projection: the
-    layer's attention output, before the residual add."""
+    layer's attention output, before the residual add. `attend(q, k, v)
+    -> [b, l, heads, d]` attends this rank's heads: training's is
+    `_attention`; a cached path's writes the layer's K/V into its cache
+    first. Latent attention runs its own flash call (`_mla_block`): the
+    cached paths refuse it."""
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     if cfg.mla:
         return _mla_block(cfg, h, lp, cos, sin, mesh, seq_sharded)
@@ -544,7 +554,7 @@ def _attention_block(cfg: TransformerConfig, x, lp, cos, sin, positions,
         group = cfg.n_heads // cfg.n_kv_heads
         k, v = (local_shard(t.repeat_interleave(group, dim=2),
                             (None, None, "tp"), mesh) for t in (k, v))
-    attn = _attention(cfg, q, k, v, mesh, seq_sharded)
+    attn = attend(q, k, v)
     return _comm.all_reduce(attn.reshape(b, l, -1) @ lp["wo"], mesh, ("tp",))
 
 
@@ -659,14 +669,17 @@ def _trunk(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
         b, l = tokens.shape
         start = axis_index(mesh, "sp") * l
         positions = (start + torch.arange(l, device=x.device)).expand(b, l)
-    body = functools.partial(_layer_body, cfg, mesh=mesh,
+    attend = functools.partial(_attention, cfg, mesh=mesh,
+                               seq_sharded=seq_sharded)
+    body = functools.partial(_layer_body, cfg, attend=attend, mesh=mesh,
                              seq_sharded=seq_sharded)
     if cfg.remat:
         body = _remat(body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layer_params(params):
         x, layer_aux = body(x, lp, cos, sin, positions)
-        aux = aux + layer_aux
+        if layer_aux is not None:
+            aux = aux + layer_aux
     return params, x, aux
 
 
@@ -744,7 +757,10 @@ def _pipelined_trunk(params: Dict, tokens: torch.Tensor,
                             keep=("stage",))
     x = _embed_span(params, tokens, cfg)
     cos, sin = _rope_cos_sin(cfg, l, x.device)
-    body = functools.partial(_layer_body, cfg, mesh=mesh)
+    body = functools.partial(
+        _layer_body, cfg, mesh=mesh,
+        attend=functools.partial(_attention, cfg, mesh=mesh,
+                                 seq_sharded=False))
     if cfg.remat:
         body = _remat(body, cfg)
 

@@ -9,9 +9,10 @@ so a long prompt never stalls the other slots for more than a chunk.
 How the port differs from the JAX engine:
 
   * Eager PyTorch instead of jitted steps: each step is a Python loop over
-    the layers. The KV cache is updated in place (JAX donated the buffers
-    to the jitted step), and each layer's K/V rows land in the cache
-    before that layer's attention reads them.
+    the layers, models/generate.py's cached forward over the training
+    model's layer. The KV cache is updated in place (JAX donated the
+    buffers to the jitted step), and each layer's K/V rows land in the
+    cache before that layer's attention reads them.
   * The jit-compile counters of `stats()` (`compiles`, `warm_compiles`,
     `recompiles_post_warm`) have no counterpart in eager PyTorch and are
     gone. `forward_passes` (decode steps dispatched plus prefill chunks
@@ -65,22 +66,16 @@ from ray_tpu_torch.exceptions import (
     RequestCancelledError,
     ServeOverloadedError,
 )
-from ray_tpu_torch.models.generate import _sample
-from ray_tpu_torch.models.transformer import (
-    TransformerConfig,
-    _act,
-    _embed_tokens,
-    layer_params,
-    project_logits,
+from ray_tpu_torch.models.generate import (
+    MAX_TOP_K,
+    _cached_forward,
+    _check_cached,
+    _pick_tokens,
 )
-from ray_tpu_torch.ops import apply_rope, rmsnorm
-from ray_tpu_torch.ops.rope import rope_tables
-from ray_tpu_torch.parallel._comm import sum_over
+from ray_tpu_torch.models.transformer import TransformerConfig
 from ray_tpu_torch.parallel.mesh import axis_index, axis_size
 from ray_tpu_torch.serve import context as request_context
 from ray_tpu_torch.serve import observatory, paged_kv
-
-NEG_INF = -1e30
 
 _STEP_MS_BOUNDARIES = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,
                        100.0, 250.0)
@@ -202,112 +197,6 @@ def init_slotted_cache(cfg: TransformerConfig, slots: int, max_len: int,
     }
 
 
-def _grouped_attention(q, kf, vf, valid):
-    """q [S, Lq, H, D] vs caches [S, Lk, KVH, D]; valid [S, Lq, Lk]."""
-    s_, lq, h, d = q.shape
-    kvh = kf.shape[2]
-    group = h // kvh
-    scale = d ** -0.5
-    qg = q.reshape(s_, lq, kvh, group, d).float()
-    scores = torch.einsum("sqhgd,skhd->shgqk", qg, kf) * scale
-    scores = torch.where(valid[:, None, None], scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("shgqk,skhd->sqhgd", p, vf).reshape(s_, lq, h, d)
-    return out.to(q.dtype)
-
-
-def _embed(params, tokens, cfg: TransformerConfig, mesh=None):
-    """The embedding rows of `tokens`. Under tp each rank holds a block of
-    the vocabulary: it contributes the rows it holds and zeros elsewhere,
-    and the sum over tp is every row exactly."""
-    if axis_size(mesh, "tp") == 1:
-        return _embed_tokens(params, tokens, cfg)
-    table = params["embed"]
-    rows = table.shape[0]
-    local = tokens - axis_index(mesh, "tp") * rows
-    hit = (local >= 0) & (local < rows)
-    x = torch.where(hit[..., None], table[local.clamp(0, rows - 1)],
-                    torch.zeros((), dtype=table.dtype, device=table.device))
-    x = sum_over(x, mesh, ("tp",)).to(cfg.dtype)
-    if cfg.scale_embeddings:  # as _embed_tokens scales
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
-                             device=x.device)
-    return x
-
-
-def _logits(x, params, cfg: TransformerConfig, mesh=None):
-    """Logits over the whole vocabulary on every rank: under tp each rank
-    projects onto its vocabulary block and the blocks are summed into
-    place."""
-    local = project_logits(x, params, cfg)
-    tp = axis_size(mesh, "tp")
-    if tp == 1:
-        return local
-    v = local.shape[-1]
-    r = axis_index(mesh, "tp")
-    full = local.new_zeros(local.shape[:-1] + (v * tp,))
-    full[..., r * v:(r + 1) * v] = local
-    return sum_over(full, mesh, ("tp",))
-
-
-def _layer_body(x, lp, k_cache_l, v_cache_l, cfg, cos, sin, positions,
-                write_kv, valid, mesh=None):
-    """One transformer layer shared by decode and prefill, both KV modes.
-
-    The callers differ only in how K/V land in the cache and what the
-    attention source is: `write_kv(kc, vc, k, v) -> (k_att, v_att)`
-    writes the layer's cache in place and returns what to attend against;
-    `valid` is the caller's mask over (B, Lq, Lk_att). Under a mesh the
-    layer computes this rank's heads and MLP columns and sums the output
-    projections over tp. Returns x."""
-    b, l = x.shape[:2]
-    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(b, l, -1, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(b, l, -1, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(b, l, -1, cfg.head_dim)
-    if cfg.qk_norm:
-        q = rmsnorm(q, lp["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, lp["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, cos, sin, positions)
-    k = apply_rope(k, cos, sin, positions)
-    k_att, v_att = write_kv(k_cache_l, v_cache_l, k, v)
-    attn = _grouped_attention(q, k_att.float(), v_att.float(), valid)
-    x = x + sum_over(attn.reshape(b, l, -1) @ lp["wo"], mesh,
-                     ("tp",)).to(x.dtype)
-    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    gate = _act(cfg)((h @ lp["w_gate"]).float())
-    up = (h @ lp["w_up"]).float()
-    return x + sum_over((gate * up).to(x.dtype) @ lp["w_down"], mesh,
-                        ("tp",))
-
-
-MAX_TOP_K = 64  # per-slot top-k cap
-
-
-def _pick_tokens(logits, temps, top_ks, top_ps, gen: torch.Generator):
-    """Per-slot next-token selection on device: greedy where temp == 0,
-    else temperature-scaled sampling with optional per-slot top-k (0 =
-    off, capped at MAX_TOP_K) and top-p (1.0 = off) filtering, so mixed
-    greedy/sampled requests share one decode batch."""
-    logits = logits.float()
-    greedy = torch.argmax(logits, dim=-1)
-    scaled = logits / temps.clamp(min=1e-6)[:, None]
-    k = min(MAX_TOP_K, logits.shape[-1])
-    topv = torch.topk(scaled, k, dim=-1).values  # [S, K] sorted desc
-    idx = (top_ks - 1).clamp(0, k - 1)
-    kth = torch.gather(topv, -1, idx[:, None])
-    scaled = torch.where((top_ks > 0)[:, None] & (scaled < kth),
-                         float("-inf"), scaled)
-    sorted_l = torch.sort(scaled, dim=-1, descending=True).values
-    probs = torch.softmax(sorted_l, dim=-1)
-    cum = torch.cumsum(probs, dim=-1)
-    keep = (cum - probs) < top_ps[:, None]
-    thr = torch.where(keep, sorted_l, float("inf")).amin(dim=-1, keepdim=True)
-    scaled = torch.where(scaled < thr, float("-inf"), scaled)
-    sampled = _sample(scaled, gen)
-    return torch.where(temps > 0, sampled, greedy)
-
-
 @torch.inference_mode()
 def _decode_slots(params, tokens, k_cache, v_cache, lengths, active,
                   temps, top_ks, top_ps, gen, cfg: TransformerConfig,
@@ -323,30 +212,22 @@ def _decode_slots(params, tokens, k_cache, v_cache, lengths, active,
     s_ = tokens.shape[0]
     lmax = k_cache.shape[2]
     dev = tokens.device
-    x = _embed(params, tokens[:, None], cfg, mesh)  # [S, 1, d]
-    cos, sin = rope_tables(cfg.head_dim, lmax, cfg.rope_theta, dev)
     positions = lengths[:, None]
     write_at = torch.where(active, lengths.clamp(max=lmax - 1), lmax - 1)
     slot_idx = torch.arange(s_, device=dev)
     k_pos = torch.arange(lmax, device=dev)[None, None, :]
     valid = k_pos <= positions[:, :, None]
 
-    def write_kv(kc, vc, k, v):
+    def write_kv(i, k, v):
+        kc, vc = k_cache[i], v_cache[i]
         kc.index_put_((slot_idx, write_at), k[:, 0].to(kc.dtype))
         vc.index_put_((slot_idx, write_at), v[:, 0].to(vc.dtype))
         return kc, vc  # attend against the full cache
 
-    for i, lp in enumerate(layer_params(params)):
-        x = _layer_body(x, lp, k_cache[i], v_cache[i], cfg, cos, sin,
-                        positions, write_kv, valid, mesh)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(x[:, -1], params, cfg, mesh)
+    logits = _cached_forward(params, tokens[:, None], cfg, positions, lmax,
+                             write_kv, valid, -1, mesh)
     new_lengths = torch.where(active, lengths + 1, lengths)
-    if temps is None:
-        next_tokens = torch.argmax(logits, dim=-1)
-    else:
-        next_tokens = _pick_tokens(logits, temps, top_ks, top_ps, gen)
-    return next_tokens, new_lengths
+    return _pick_tokens(logits, temps, top_ks, top_ps, gen), new_lengths
 
 
 @torch.inference_mode()
@@ -362,23 +243,19 @@ def _prefill_chunk(params, tokens, n_valid: int, slot: int, offset: int,
     _, c = tokens.shape
     lmax = k_cache.shape[2]
     dev = tokens.device
-    x = _embed(params, tokens, cfg, mesh)
-    cos, sin = rope_tables(cfg.head_dim, lmax, cfg.rope_theta, dev)
     positions = offset + torch.arange(c, device=dev)[None, :]
     k_pos = torch.arange(lmax, device=dev)[None, None, :]
     valid = (k_pos <= positions[:, :, None]) & (k_pos < offset + n_valid)
     keep = max(0, min(c, lmax - offset))
 
-    def write_kv(kc, vc, k, v):
+    def write_kv(i, k, v):
+        kc, vc = k_cache[i], v_cache[i]
         kc[slot, offset:offset + keep] = k[0, :keep].to(kc.dtype)
         vc[slot, offset:offset + keep] = v[0, :keep].to(vc.dtype)
         return kc[slot:slot + 1], vc[slot:slot + 1]
 
-    for i, lp in enumerate(layer_params(params)):
-        x = _layer_body(x, lp, k_cache[i], v_cache[i], cfg, cos, sin,
-                        positions, write_kv, valid, mesh)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(x[:, n_valid - 1], params, cfg, mesh)
+    logits = _cached_forward(params, tokens, cfg, positions, lmax, write_kv,
+                             valid, n_valid - 1, mesh)
     # fill_ runs on the device; `lengths[slot] = n` would copy a host
     # scalar and wait for every step already enqueued.
     lengths[slot].fill_(offset + n_valid)
@@ -604,11 +481,7 @@ class ContinuousBatchingEngine:
                     f"the mesh's tp={axis_size(mesh, 'tp')} must divide "
                     f"n_kv_heads={cfg.n_kv_heads}"
                 )
-        if cfg.mla:
-            raise ValueError(
-                "the serving engine does not run multi-head latent "
-                "attention (MLA): it has no latent KV cache; the config "
-                f"has kv_lora_rank={cfg.kv_lora_rank}")
+        _check_cached(cfg)
         self._tp = axis_size(mesh, "tp")
         self.tp_rank = axis_index(mesh, "tp")
         # Plans flow only once both sides have warmed up alike.

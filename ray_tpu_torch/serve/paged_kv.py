@@ -35,9 +35,9 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.transformer import TransformerConfig, layer_params
-from ray_tpu_torch.ops import rmsnorm
-from ray_tpu_torch.ops.rope import rope_tables
+from ray_tpu_torch.models.generate import _cached_forward, _pick_tokens
+from ray_tpu_torch.models.transformer import TransformerConfig
+from ray_tpu_torch.parallel.mesh import axis_size
 from ray_tpu_torch.serve._prefix_hash import (  # noqa: F401
     page_hashes,
     prefix_route_key,
@@ -229,8 +229,6 @@ def init_paged_cache(cfg: TransformerConfig, slots: int, num_pages: int,
     and the block table (all entries NULL_PAGE). Under a mesh the pool
     holds this rank's KV heads (split over "tp"); lengths and the block
     table are whole on every rank."""
-    from ray_tpu_torch.parallel.mesh import axis_size
-
     device = resolve_device(device)
     shape = (cfg.n_layers, num_pages, page_size,
              cfg.n_kv_heads // axis_size(mesh, "tp"), cfg.head_dim)
@@ -258,17 +256,12 @@ def decode_paged(params, tokens, k_pages, v_pages, lengths, active,
     NULL page. Attention gathers the slot's whole table (width =
     pages_per_slot * page_size) and masks by length. Under a mesh the
     pool holds this rank's KV heads and `params` its shards."""
-    from ray_tpu_torch.serve.llm import (_embed, _layer_body,  # cycle
-                                         _logits, _pick_tokens)
-
     s_ = tokens.shape[0]
     ps = k_pages.shape[2]
     mp = block_tables.shape[1]
     width = mp * ps
     kvh, hd = k_pages.shape[3], k_pages.shape[4]
     dev = tokens.device
-    x = _embed(params, tokens[:, None], cfg, mesh)  # [S, 1, d]
-    cos, sin = rope_tables(cfg.head_dim, max_len, cfg.rope_theta, dev)
     positions = lengths[:, None]
     pos_w = torch.where(active, lengths.clamp(max=max_len - 1), 0)
     page_of = (pos_w // ps).clamp(max=mp - 1)
@@ -278,24 +271,18 @@ def decode_paged(params, tokens, k_pages, v_pages, lengths, active,
     k_pos = torch.arange(width, device=dev)[None, None, :]
     valid = k_pos <= positions[:, :, None]
 
-    def write_kv(kc, vc, k, v):
+    def write_kv(i, k, v):
+        kc, vc = k_pages[i], v_pages[i]
         kc.index_put_((pages_w, rows_w), k[:, 0].to(kc.dtype))
         vc.index_put_((pages_w, rows_w), v[:, 0].to(vc.dtype))
         k_att = kc[block_tables].reshape(s_, width, kvh, hd)
         v_att = vc[block_tables].reshape(s_, width, kvh, hd)
         return k_att, v_att
 
-    for i, lp in enumerate(layer_params(params)):
-        x = _layer_body(x, lp, k_pages[i], v_pages[i], cfg, cos, sin,
-                        positions, write_kv, valid, mesh)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(x[:, -1], params, cfg, mesh)
+    logits = _cached_forward(params, tokens[:, None], cfg, positions,
+                             max_len, write_kv, valid, -1, mesh)
     new_lengths = torch.where(active, lengths + 1, lengths)
-    if temps is None:
-        next_tokens = torch.argmax(logits, dim=-1)
-    else:
-        next_tokens = _pick_tokens(logits, temps, top_ks, top_ps, gen)
-    return next_tokens, new_lengths
+    return _pick_tokens(logits, temps, top_ks, top_ps, gen), new_lengths
 
 
 @torch.inference_mode()
@@ -312,16 +299,12 @@ def prefill_chunk_paged(params, tokens, n_valid: int, slot: int, offset: int,
     Prefix-cache resumption needs nothing special: the engine starts
     `offset` at the shared-prefix boundary and the gathered pages already
     hold the donor's K/V rows below it. Under a mesh, as decode_paged."""
-    from ray_tpu_torch.serve.llm import _embed, _layer_body, _logits  # cycle
-
     _, c = tokens.shape
     ps = k_pages.shape[2]
     mp = block_tables.shape[1]
     width = mp * ps
     kvh, hd = k_pages.shape[3], k_pages.shape[4]
     dev = tokens.device
-    x = _embed(params, tokens, cfg, mesh)
-    cos, sin = rope_tables(cfg.head_dim, max_len, cfg.rope_theta, dev)
     pos = offset + torch.arange(c, device=dev)
     positions = pos[None, :]
     k_pos = torch.arange(width, device=dev)[None, None, :]
@@ -332,18 +315,16 @@ def prefill_chunk_paged(params, tokens, n_valid: int, slot: int, offset: int,
     pages_w = torch.where(in_range, bt_row[page_of], NULL_PAGE)
     rows_w = pos % ps
 
-    def write_kv(kc, vc, k, v):
+    def write_kv(i, k, v):
+        kc, vc = k_pages[i], v_pages[i]
         kc.index_put_((pages_w, rows_w), k[0].to(kc.dtype))
         vc.index_put_((pages_w, rows_w), v[0].to(vc.dtype))
         k_att = kc[bt_row].reshape(1, width, kvh, hd)
         v_att = vc[bt_row].reshape(1, width, kvh, hd)
         return k_att, v_att
 
-    for i, lp in enumerate(layer_params(params)):
-        x = _layer_body(x, lp, k_pages[i], v_pages[i], cfg, cos, sin,
-                        positions, write_kv, valid, mesh)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(x[:, n_valid - 1], params, cfg, mesh)
+    logits = _cached_forward(params, tokens, cfg, positions, max_len,
+                             write_kv, valid, n_valid - 1, mesh)
     # fill_ runs on the device; `lengths[slot] = n` would copy a host
     # scalar and wait for every step already enqueued.
     lengths[slot].fill_(offset + n_valid)

@@ -134,3 +134,48 @@ def test_sampler_follows_its_distribution():
     sd = torch.sqrt(n * p * (1 - p))
     assert counts[5] == 0
     assert bool(((counts - n * p).abs() <= 5 * sd + 1e-9).all()), counts
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_training_generation_and_serving_share_the_layer(name):
+    """The logits at a prompt's last position from the training forward,
+    `prefill`, and the engine's slotted and paged prefill chunks agree in
+    f32: all four run models/transformer.py's decoder layer."""
+    from ray_tpu_torch.models import forward
+    from ray_tpu_torch.serve import llm, paged_kv
+
+    _, _, tp, tcfg = _models(name)
+    prompt = torch.tensor([[5, 17, 3, 99, 42, 7, 250]])
+    n = prompt.shape[1]
+    want = forward(tp, prompt, tcfg)[0][:, -1]
+    got = {"prefill": tgen.prefill(
+        tp, prompt, tgen.init_kv_cache(tcfg, 1, 16, device="cpu"), tcfg)[0]}
+    chunk = torch.zeros((1, 8), dtype=torch.int64)
+    chunk[0, :n] = prompt[0]
+    sl = llm.init_slotted_cache(tcfg, 2, 16, device="cpu")
+    got["slotted"] = llm._prefill_chunk(tp, chunk, n, 1, 0, sl["k"], sl["v"],
+                                        sl["lengths"], tcfg)
+    pg = paged_kv.init_paged_cache(tcfg, 2, 9, 4, 4, device="cpu")
+    bt = torch.tensor([[8, 3, 5, 1], [2, 7, 4, 6]])
+    got["paged"] = paged_kv.prefill_chunk_paged(
+        tp, chunk, n, 1, 0, pg["k"], pg["v"], pg["lengths"], bt, tcfg, 16)
+    for path, logits in got.items():
+        torch.testing.assert_close(logits, want, rtol=0, atol=1e-5,
+                                   msg=lambda m: f"{path}: {m}")
+
+
+@pytest.mark.parametrize("name,field", [("tiny_moe", "num_experts"),
+                                        ("tiny_mla", "kv_lora_rank")])
+def test_generation_and_the_engine_refuse_moe_and_mla(name, field):
+    """The KV caches hold dense layers' per-head keys and values: `generate`
+    and the serving engine refuse expert layers and latent attention, with
+    a message naming the config's field."""
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.serve.llm import ContinuousBatchingEngine
+
+    cfg = configs.NAMED_CONFIGS[name]
+    params = init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(ValueError, match=field):
+        ContinuousBatchingEngine(params, cfg)
+    with pytest.raises(ValueError, match=field):
+        tgen.generate(params, [[1, 2, 3]], cfg, max_new_tokens=2)
